@@ -1,0 +1,20 @@
+"""barcoder_tpu_torch — the PyTorch / CUDA port of ``barcoder_tpu`` for one
+NVIDIA H100.
+
+The same workloads from the same inputs to the same outputs, with every
+Pallas TPU kernel replaced by a kernel written by hand for Hopper
+(``csrc/``) and the rest of the device work in plain torch. The JAX package
+stays beside it as the reference; this package imports its JAX-free parts
+(``core``, ``seqio``, ``model``, ``utils``) and never ``jax``.
+
+Ported so far: the ``targets`` workload on the dense scan engine.
+
+Layers (bottom-up):
+  - ``barcoder_tpu_torch.csrc``     — CUDA C++ kernels (sm_90a), built at first use
+  - ``barcoder_tpu_torch.ops``      — scan engine (CUDA kernel + plain torch + numpy oracle)
+  - ``barcoder_tpu_torch.pipeline`` — end-to-end workloads (targets)
+  - ``barcoder_tpu_torch.cli``      — command-line frontend
+"""
+
+__version__ = "0.1.0"
+from .cli.main import main

@@ -1,0 +1,247 @@
+"""Phase-1 hit-indicator kernel: the port of
+``barcoder_tpu/ops/pallas_scan.py::_scan_hits_kernel`` / ``scan_block_hits``.
+
+:func:`scan_block_hits` keeps the JAX wrapper's argument list and output
+layout. A CUDA tensor launches the hand-written kernel in
+``csrc/scan_hits.cu`` (built with ``nvcc`` for sm_90a at first use, loaded
+with ctypes); a CPU tensor takes :func:`scan_block_hits_reference`, the
+plain torch version with the same contract. Nothing falls back: a kernel
+that does not build or launch raises.
+
+Both compute, for each (genome tile t, spacer block s), the number of
+columns in each of SUB subtiles whose best biased score over the block's
+rows reaches ``thresh``. The scores are small integers and the bias values
+(0 and MASK_BIAS) are exact in bf16, so both versions agree bit for bit
+with the TPU kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+BS = 128  # default spacer block height (the TPU kernel's MXU M dim)
+MASK_BIAS = -16384.0  # added to masked-out positions; far below any score
+
+# kernel launches since the counter was last reset (the smoke run resets it
+# and checks that the main path went through the kernel)
+launches = 0
+
+_SRC = Path(__file__).resolve().parent.parent / "csrc" / "scan_hits.cu"
+# the kernel is built into the source checkout's git-ignored build/ (as
+# barcoder_tpu/native_bridge.py builds its library), so the package runs from
+# a checkout; an installed copy would build beside its own parent directory
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "barcoder_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+_MAX_BS_M = 2048  # 16 B of shared memory per packed row: 32 KB at most
+_lib = None
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def build_g_onehot(g_flat: torch.Tensor, *, L: int, K: int, P: int) -> torch.Tensor:
+    """codes (..., W) → one-hot G (..., K, P) float32 with layout row =
+    4j + b (codes 4 = N and 5 = out of bounds give zero columns).
+
+    Trap: the JAX version slices window j with ``dynamic_slice_in_dim``,
+    which CLAMPS a start that would run past W; ``unfold`` here yields fewer
+    windows instead. Every caller passes W >= P + L - 1, so neither case
+    arises — and the check turns a short input into an error rather than a
+    silently different G."""
+    W = g_flat.shape[-1]
+    if W < P + L - 1:
+        raise ValueError(f"code window width {W} < P + L - 1 = {P + L - 1}")
+    return _onehot_g(g_flat.unfold(-1, P, 1)[..., :L, :], K=K)
+
+
+def _onehot_g(windows: torch.Tensor, *, K: int) -> torch.Tensor:
+    """(..., L, P) window codes (column p's base j at [j, p]) → one-hot G
+    (..., K, P) float32, rows 4L..K zero."""
+    L, P = windows.shape[-2:]
+    base = torch.arange(4, device=windows.device, dtype=windows.dtype)
+    onehot = windows[..., :, None, :] == base[:, None]  # (..., L, 4, P)
+    g4l = onehot.reshape(*windows.shape[:-2], 4 * L, P).to(torch.float32)
+    if 4 * L < K:
+        g4l = torch.nn.functional.pad(g4l, (0, 0, 0, K - 4 * L))
+    return g4l
+
+
+def _check(q_onehot, tiles, bias_tiles, *, L, K, P, SUB, fold_bias, matrix_rows):
+    bias_rows = bias_tiles.shape[1]
+    if fold_bias and 4 * L + bias_rows > K:
+        raise ValueError(
+            f"fold_bias needs spare G rows: 4L+{bias_rows}={4*L+bias_rows} > K={K}"
+        )
+    if not fold_bias and bias_rows != 1:
+        raise ValueError("multiple bias rows require fold_bias")
+    if q_onehot.shape[1] != K:
+        raise ValueError(f"q_onehot has {q_onehot.shape[1]} columns, expected K={K}")
+    if P % SUB:
+        raise ValueError(f"SUB={SUB} must divide P={P}")
+    if matrix_rows:
+        if tiles.shape[1] < L or tiles.shape[2] != P:
+            raise ValueError(f"matrix_rows tiles {tuple(tiles.shape)} need (n, >= L, P)")
+    elif tiles.shape[1] != 1 or tiles.shape[2] < P + L - 1:
+        raise ValueError(f"tiles {tuple(tiles.shape)} need (n, 1, >= P + L - 1)")
+    if bias_tiles.shape[0] != tiles.shape[0] or bias_tiles.shape[2] != P:
+        raise ValueError(f"bias_tiles {tuple(bias_tiles.shape)} do not match tiles")
+
+
+def scan_block_hits_reference(thresh, q_onehot, tiles, bias_tiles, *, L, K, P,
+                              SUB=1, BS_M=BS, fold_bias=False, matrix_rows=False):
+    """Plain torch version of the kernel (the contract of
+    ``parallel/sharded_scan.py``'s exact-contract ``per_tile`` fallback),
+    one tile at a time so the (S_pad, P) score matrix stays bounded.
+    Products of 0/1 values summed in float32 are exact integers."""
+    _check(q_onehot, tiles, bias_tiles, L=L, K=K, P=P, SUB=SUB, fold_bias=fold_bias,
+           matrix_rows=matrix_rows)
+    n_sblocks = q_onehot.shape[0] // BS_M
+    n_sb_pad8 = _cdiv(n_sblocks, 8) * 8
+    n_tiles = tiles.shape[0]
+    bias_rows = bias_tiles.shape[1]
+    out = torch.zeros((n_tiles, n_sb_pad8, SUB), dtype=torch.float32,
+                      device=q_onehot.device)
+    q = q_onehot[: n_sblocks * BS_M].to(torch.float32)
+    th = thresh.reshape(-1)[0]
+    for t in range(n_tiles):
+        if matrix_rows:  # column p holds its own L codes
+            g = _onehot_g(tiles[t, :L, :P], K=K)
+        else:
+            g = build_g_onehot(tiles[t, 0], L=L, K=K, P=P)
+        bias = bias_tiles[t].to(torch.float32)
+        if fold_bias:
+            # the TPU folds the bias rows into G as bf16; 0 and MASK_BIAS
+            # are exact there, and the rounding is kept for any other value
+            g = g.clone()
+            g[4 * L : 4 * L + bias_rows] = bias.to(torch.bfloat16).to(torch.float32)
+            scores = q @ g
+        else:
+            scores = q @ g + bias[0][None, :]
+        colmax = scores.reshape(n_sblocks, BS_M, P).amax(dim=1)
+        hit = colmax >= th
+        out[t, :n_sblocks] = hit.reshape(n_sblocks, SUB, P // SUB).sum(dim=2).to(torch.float32)
+    return out
+
+
+def scan_block_hits(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB=1,
+                    BS_M=BS, fold_bias=False, matrix_rows=False):
+    """Phase 1 (hit indicator), the JAX wrapper's contract.
+
+    thresh f32 (1,) — a score >= thresh is a hit (callers pass L - v);
+    q_onehot (S_pad, K) bf16 one-hot rows (values 0 or 1) with constant-1
+    bias columns at 4L (+1) when ``fold_bias``; tiles (n_tiles, 1, P + halo)
+    int32 overlapped genome codes, or with ``matrix_rows`` (n_tiles, >= L, P)
+    independent window codes; bias_tiles (n_tiles, R, P) f32 (0 or
+    MASK_BIAS). Returns (n_tiles, n_sb_pad8, SUB) f32 hit-column counts per
+    (subtile, spacer block), with the block axis padded to a multiple of 8
+    by zero rows. Raises, like the JAX wrapper, on fold without spare rows
+    and on several bias rows without fold."""
+    if q_onehot.device.type == "cpu":
+        return scan_block_hits_reference(
+            thresh, q_onehot, tiles, bias_tiles, L=L, K=K, P=P, SUB=SUB,
+            BS_M=BS_M, fold_bias=fold_bias, matrix_rows=matrix_rows,
+        )
+    if q_onehot.device.type != "cuda":
+        raise ValueError(f"scan_block_hits runs on cpu or cuda, not {q_onehot.device}")
+    return _launch(thresh, q_onehot, tiles, bias_tiles, L=L, K=K, P=P, SUB=SUB,
+                   BS_M=BS_M, fold_bias=fold_bias, matrix_rows=matrix_rows)
+
+
+def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,
+            fold_bias, matrix_rows):
+    global launches
+    _check(q_onehot, tiles, bias_tiles, L=L, K=K, P=P, SUB=SUB, fold_bias=fold_bias,
+           matrix_rows=matrix_rows)
+    dev = q_onehot.device
+    for name, x, dtype in (("thresh", thresh, torch.float32),
+                           ("q_onehot", q_onehot, torch.bfloat16),
+                           ("tiles", tiles, torch.int32),
+                           ("bias_tiles", bias_tiles, torch.float32)):
+        if x.device != dev or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous {dtype} tensor on {dev}, got "
+                f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
+            )
+    bias_rows = bias_tiles.shape[1]
+    if L > 32 or bias_rows > 2 or BS_M > _MAX_BS_M:
+        raise ValueError(
+            f"the CUDA kernel takes L <= 32, at most 2 bias rows and BS_M <= "
+            f"{_MAX_BS_M}; got L={L}, {bias_rows} rows, BS_M={BS_M}"
+        )
+    n_sblocks = q_onehot.shape[0] // BS_M
+    if n_sblocks > 65535:
+        raise ValueError(f"{n_sblocks} spacer blocks exceed the grid's y limit")
+    n_sb_pad8 = _cdiv(n_sblocks, 8) * 8
+    n_tiles = tiles.shape[0]
+    out = torch.zeros((n_tiles, n_sb_pad8, SUB), dtype=torch.float32, device=dev)
+    tile_stride = tiles.shape[1] * tiles.shape[2]
+    code_stride = P if matrix_rows else 1
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.scan_block_hits_launch(
+            thresh.data_ptr(), q_onehot.data_ptr(), tiles.data_ptr(),
+            bias_tiles.data_ptr(), out.data_ptr(), n_tiles, n_sblocks,
+            n_sb_pad8, K, L, P, SUB, BS_M, tile_stride, code_stride,
+            bias_rows, int(bool(fold_bias)), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"scan_hits kernel launch failed with CUDA error {rc}")
+    launches += 1
+    return out
+
+
+def _find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
+
+
+def build_library() -> Path:
+    """Compile csrc/scan_hits.cu for sm_90a into build/barcoder_tpu_torch/,
+    keyed by a hash of the source and flags; a no-op when that build exists.
+    The ptxas report (registers, shared memory, spills) lands beside it as
+    a .log file."""
+    src = _SRC.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = _BUILD_DIR / f"scan_hits-{key}.so"
+    if out.exists():
+        return out
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def _library():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build_library()))
+        fn = lib.scan_block_hits_launch
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [vp, vp, vp, vp, vp] + [i32] * 8 + [i64, i64, i32, i32, vp]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
