@@ -7,7 +7,7 @@ Argument-compatible with the reference's ``python targets.py`` CLI
 stdout; a rich summary table goes to stderr (targets.py:716-861).
 
 Additions over the reference: ``--backend`` to pick the scan engine (cuda,
-torch, oracle) and ``--library-column`` for TSV libraries.
+sharded, torch, oracle) and ``--library-column`` for TSV libraries.
 """
 
 from __future__ import annotations
@@ -63,7 +63,8 @@ def build_parser(parser: argparse.ArgumentParser | None = None) -> argparse.Argu
         "Default: report ALL hits. Pass 100 for apples-to-apples diffs "
         "against real Bowtie output on dense-hit libraries",
     )
-    p.add_argument("--backend", default="auto", choices=["auto", "cuda", "torch", "oracle"])
+    p.add_argument("--backend", default="auto",
+                   choices=["auto", "cuda", "sharded", "torch", "oracle"])
     p.add_argument(
         "--profile", default=None, metavar="DIR",
         help="Write a torch.profiler trace + phase timings to DIR",

@@ -12,6 +12,9 @@ Backends:
   ``cuda``   — the dense two-phase engine (``cuda_scan``) with the phase-1
                CUDA kernel; raises when CUDA is absent or the kernel fails
                to build or launch, and never falls back;
+  ``sharded`` — the genome-sharded engine (``parallel.sharded_scan``) over
+               every local device (``parallel.mesh.make_mesh``): all cards,
+               or the CPU where there is none;
   ``torch``  — the plain torch scan (``ref_scan.torch_scan``), on the GPU
                when there is one, else on the CPU;
   ``oracle`` — the numpy oracle;
@@ -29,9 +32,9 @@ import torch
 from barcoder_tpu.core.genome import Contig, Genome
 from .types import Hits
 
-Backend = Literal["auto", "cuda", "torch", "oracle"]
+Backend = Literal["auto", "cuda", "sharded", "torch", "oracle"]
 
-_BACKENDS = ("oracle", "torch", "cuda")
+_BACKENDS = ("oracle", "torch", "cuda", "sharded")
 _log = logging.getLogger(__name__)
 
 
@@ -70,6 +73,21 @@ def scan_contigs(
         return cuda_scan_contigs(
             spacers, contigs, max_mismatches, pam, pam_direction, device="cuda"
         )
+    if b == "sharded":
+        from .cuda_scan import MAX_PAM
+
+        # PAMs longer than the PAM spec's slots take the plain torch scan,
+        # as the JAX package sends them to jax_scan
+        if len(pam) <= MAX_PAM:
+            from ..parallel.mesh import default_tile, make_mesh
+            from ..parallel.sharded_scan import sharded_scan_contigs
+
+            mesh = make_mesh()
+            return sharded_scan_contigs(
+                spacers, contigs, max_mismatches, pam, pam_direction, mesh=mesh,
+                P=default_tile(mesh),
+            )
+        b = "torch"
     if b == "torch":
         from .ref_scan import torch_scan
 

@@ -3,8 +3,8 @@
 
 :func:`scan_block_hits` keeps the JAX wrapper's argument list and output
 layout. A CUDA tensor launches the hand-written kernel in
-``csrc/scan_hits.cu`` (built with ``nvcc`` for sm_90a at first use, loaded
-with ctypes); a CPU tensor takes :func:`scan_block_hits_reference`, the
+``csrc/scan_hits.cu`` (built with ``nvcc`` for sm_90a at first use and
+loaded with ctypes, by ``nvcc.py``); a CPU tensor takes :func:`scan_block_hits_reference`, the
 plain torch version with the same contract. Nothing falls back: a kernel
 that does not build or launch raises.
 
@@ -18,13 +18,10 @@ with the TPU kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
+
+from . import nvcc
 
 BS = 128  # default spacer block height (the TPU kernel's MXU M dim)
 MASK_BIAS = -16384.0  # added to masked-out positions; far below any score
@@ -33,17 +30,7 @@ MASK_BIAS = -16384.0  # added to masked-out positions; far below any score
 # and checks that the main path went through the kernel)
 launches = 0
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "scan_hits.cu"
-# the kernel is built into the source checkout's git-ignored build/ (as
-# barcoder_tpu/native_bridge.py builds its library), so the package runs from
-# a checkout; an installed copy would build beside its own parent directory
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "barcoder_tpu_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _MAX_BS_M = 2048  # 16 B of shared memory per packed row: 32 KB at most
-_lib = None
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -187,10 +174,12 @@ def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,
     out = torch.zeros((n_tiles, n_sb_pad8, SUB), dtype=torch.float32, device=dev)
     tile_stride = tiles.shape[1] * tiles.shape[2]
     code_stride = P if matrix_rows else 1
-    lib = _library()
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    launch = nvcc.launcher("scan_hits", "scan_block_hits_launch",
+                           [vp] * 5 + [i32] * 8 + [i64, i64, i32, i32, vp])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.scan_block_hits_launch(
+        rc = launch(
             thresh.data_ptr(), q_onehot.data_ptr(), tiles.data_ptr(),
             bias_tiles.data_ptr(), out.data_ptr(), n_tiles, n_sblocks,
             n_sb_pad8, K, L, P, SUB, BS_M, tile_stride, code_stride,
@@ -200,48 +189,3 @@ def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,
         raise RuntimeError(f"scan_hits kernel launch failed with CUDA error {rc}")
     launches += 1
     return out
-
-
-def _find_nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-
-
-def build_library() -> Path:
-    """Compile csrc/scan_hits.cu for sm_90a into build/barcoder_tpu_torch/,
-    keyed by a hash of the source and flags; a no-op when that build exists.
-    The ptxas report (registers, shared memory, spills) lands beside it as
-    a .log file."""
-    src = _SRC.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"scan_hits-{key}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        fn = lib.scan_block_hits_launch
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [vp, vp, vp, vp, vp] + [i32] * 8 + [i64, i64, i32, i32, vp]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib

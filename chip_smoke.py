@@ -6,12 +6,16 @@
 
 Phases (any failure is a non-zero exit; nothing is caught):
 
-1. build the phase-1 CUDA kernel from ``barcoder_tpu_torch/csrc/`` with
-   nvcc for sm_90a;
-2. hold the kernel against its plain torch version on the card, bit-equal,
-   at the main path's shapes (P = 16384, SUB = 32, BS_M = 512, K = 128, 8
-   tiles; L = 20 with 2 folded bias rows, L = 32 additive, L = 20 with 1
-   folded row), and time both;
+1. build both CUDA kernels from ``barcoder_tpu_torch/csrc/`` with nvcc for
+   sm_90a, one nvcc process per source, started together;
+2. hold the phase-1 hit kernel (``scan_hits``) against its plain torch
+   version on the card, bit-equal, at the main path's shapes (P = 16384,
+   SUB = 32, BS_M = 512, K = 128, 8 tiles; L = 20 with 2 folded bias rows,
+   L = 32 additive, L = 20 with 1 folded row), and time both;
+2b. the same for the block-max kernel (``scan_max``) at the scaling
+   harness's shapes (P = 16384, K = 128, 8 tiles, 80 spacer blocks with
+   zero padding rows, the last tile fully masked; L = 20 additive SUB = 1,
+   L = 20 folded SUB = 32, L = 32 additive SUB = 1);
 3. drive the targets workload through ``run_targets(backend="cuda")`` on a
    4.6 Mb circular synthetic genome (~4,200 genes, one across the origin):
    a 9,984-spacer 20-nt library plus planted guides (NGG, v = 3), the same
@@ -19,21 +23,45 @@ Phases (any failure is a non-zero exit; nothing is caught):
    guide must come back at 0 mismatches, the kernel must have launched, and
    request 1's Hits must equal the plain ``torch_scan`` on the card; then
    the CLI answers once in a subprocess.
+5. the sharded path: request 1 through ``run_targets(backend="sharded")``
+   (the frame must equal the cuda backend's), then ``sharded_scan`` over
+   request 1's library and genome on a 1-shard mesh and on a 4-shard mesh
+   of the same card (Hits equal to the cuda backend's, every planted guide
+   found) and ``sharded_scan_block_max`` on both meshes (block_max and
+   totals equal to its plain version's on the card); both kernels must
+   have launched in that run. Steady walls of the cuda backend and the two
+   sharded meshes; then the scaling harness
+   (``python -m barcoder_tpu_torch.parallel.scaling 4600000 10240 --engine
+   both --single-chip``) in a subprocess, its JSON printed on one line:
+   every row it timed must have launched its kernel (the harness counts
+   launches per row). Last, the harness's block-max workload in this
+   process, with the launch count at 0 before it: block_max and totals
+   equal to the plain version's, and every spacer scoring L at its own
+   genome window.
+
+The kernels line gives each kernel's launches per path (``launches_by_path``,
+each path's count taken from 0 just before it) and their sum.
 
 With ``--profile DIR``, a fourth phase times three steady-state runs of
 the 20-nt and the 32-nt request, then runs each once under
 ``torch.profiler``: it prints the phase timings, the device time summed
 over the CUDA-side events (kernels and copies), the device busy share
 (that sum over the profiled wall) and the largest device events, and
-writes each trace to ``DIR/trace_L{20,32}.json``.
+writes each trace to ``DIR/trace_L{20,32}.json``. It then does the same
+for the scaling harness's workload through ``sharded_scan`` and
+``sharded_scan_block_max``, on one card and, on a machine with several,
+on one shard per card, splitting each profiled call into each card's busy
+time, the device idle share and the host's torch ops
+(``DIR/trace_{flagship,block_max}_{1,N}.json``).
 
-Prints the card's name and power limit, one JSON line of kernel results,
-and last ``{"ok": true, "device": {...}}``.
+Prints the card's name and power limit, one JSON line of kernel results
+(both kernels), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -137,6 +165,67 @@ def phase2_kernel_vs_plain() -> dict:
             pairs_per_s=pairs / (ms / 1e3), shape=dict(spec, n_tiles=args[2].shape[0]),
         )
         log(f"phase 2 {name}: bit-equal, max_abs_err {err}, kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, {pairs / (ms / 1e3):.4e} pairs/s")
+    return results
+
+
+# --- phase 2b ----------------------------------------------------------------
+
+def max_kernel_case(rng, *, L, fold, SUB, S_pad=10_240, n_pad=240, n_tiles=8, P=16384,
+                    K=128):
+    """Block-max inputs at the harness's shapes: genome codes with N (4) and
+    the out-of-bounds sentinel (5); spacers cut from the codes with 0-4
+    substitutions, the last ``n_pad`` rows zero padding (no constant bias
+    column); a random 0/-16384 bias with the last tile fully masked, where
+    the folded padding rows' score (0) beats every real row's."""
+    from barcoder_tpu_torch.ops.cuda_scan import onehot_rows
+
+    codes = rng.integers(0, 4, (n_tiles, 1, P + K // 4)).astype(np.int32)
+    codes[rng.random(codes.shape) < 0.02] = 4
+    codes[rng.random(codes.shape) < 0.005] = 5
+    t = rng.integers(n_tiles, size=S_pad)
+    p = rng.integers(P, size=S_pad)
+    qc = np.minimum(codes[t, 0][np.arange(S_pad)[:, None], p[:, None] + np.arange(L)], 4)
+    sub = rng.random(qc.shape) < 0.08
+    qc[sub] = rng.integers(0, 5, int(sub.sum()))
+    q = onehot_rows(qc.astype(np.int8), K)
+    if fold:
+        q[:, 4 * L] = 1
+    q[S_pad - n_pad :] = 0
+    bias = np.where(rng.random((n_tiles, 1, P)) < 0.1, 0.0, -16384.0).astype(np.float32)
+    bias[-1] = -16384.0
+    dev = torch.device("cuda")
+    args = (torch.from_numpy(q).to(dev, torch.bfloat16), torch.from_numpy(codes).to(dev),
+            torch.from_numpy(bias).to(dev))
+    return args, dict(L=L, K=K, P=P, SUB=SUB, fold_bias=fold)
+
+
+def phase2b_max_kernel_vs_plain() -> dict:
+    from barcoder_tpu_torch.ops import scan_max
+
+    rng = np.random.default_rng(SEED + 2)
+    cases = [
+        ("L20_additive_SUB1", dict(L=20, fold=False, SUB=1)),
+        ("L20_fold_SUB32", dict(L=20, fold=True, SUB=32)),
+        ("L32_additive_SUB1", dict(L=32, fold=False, SUB=1)),
+    ]
+    results = {}
+    for name, spec in cases:
+        args, kw = max_kernel_case(rng, **spec)
+        got = scan_max.scan_block_max(*args, **kw)
+        want = scan_max.scan_block_max_reference(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: block-max kernel disagrees with its plain "
+                                 f"version ({int((got != want).sum())} entries)")
+        err = float((got - want).abs().max())
+        plain_ms = cuda_ms(lambda: scan_max.scan_block_max_reference(*args, **kw))
+        ms = cuda_ms(lambda: scan_max.scan_block_max(*args, **kw))
+        pairs = args[0].shape[0] // 128 * 128 * args[1].shape[0] * kw["P"]
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             pairs_per_s=pairs / (ms / 1e3), shape=dict(spec, n_tiles=8,
+                                                                       S_pad=args[0].shape[0]))
+        log(f"phase 2b {name}: bit-equal, max_abs_err {err}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, {pairs / (ms / 1e3):.4e} pairs/s")
     return results
 
@@ -280,7 +369,7 @@ def phase3_hits_vs_plain(genome, libs) -> dict:
             raise AssertionError(f"cuda Hits differ from torch_scan in {f}")
     log(f"phase 3: cuda Hits == torch_scan Hits ({len(got)} hits; cuda scan "
         f"{t1 - t0:.4f} s, torch_scan {t2 - t1:.4f} s)")
-    return dict(hits=len(got), cuda_scan_s=t1 - t0, torch_scan_s=t2 - t1)
+    return dict(hits=len(got), cuda_scan_s=t1 - t0, torch_scan_s=t2 - t1), got
 
 
 def phase3_cli(rec) -> None:
@@ -308,6 +397,177 @@ def phase3_cli(rec) -> None:
                for line in proc.stdout.splitlines()):
         raise AssertionError("CLI output lacks the planted guide")
     log("phase 3: CLI answered with the planted guide")
+
+
+# --- phase 5 -----------------------------------------------------------------
+
+def same_hits(a, b) -> bool:
+    return all(np.array_equal(getattr(a, f), getattr(b, f))
+               for f in ("spacer_idx", "pos", "strand", "mismatches"))
+
+
+@contextlib.contextmanager
+def plain_block_max():
+    """sharded_scan_block_max with its kernel swapped for the plain torch
+    version, on the same shards: the comparison side of the card check."""
+    from barcoder_tpu_torch.ops import scan_max
+    from barcoder_tpu_torch.parallel import sharded_scan
+
+    kernel = sharded_scan.scan_block_max
+    sharded_scan.scan_block_max = scan_max.scan_block_max_reference
+    try:
+        yield
+    finally:
+        sharded_scan.scan_block_max = kernel
+
+
+def walls(fn, reps: int = 3) -> list:
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def phase5_sharded(genome, libs, plants, cuda_hits) -> dict:
+    """The sharded path on the card: run_targets(backend="sharded"),
+    sharded_scan and sharded_scan_block_max on 1 and 4 shards of cuda:0."""
+    import pandas as pd
+
+    from barcoder_tpu_torch.ops import scan_hits, scan_max
+    from barcoder_tpu_torch.ops.cuda_scan import onehot_rows
+    from barcoder_tpu_torch.ops.prep import build_scan_array, site_masks, spacer_matrix
+    from barcoder_tpu_torch.ops.scan import scan_contigs
+    from barcoder_tpu_torch.parallel.mesh import make_mesh
+    from barcoder_tpu_torch.parallel.sharded_scan import sharded_scan, sharded_scan_block_max
+    from barcoder_tpu_torch.pipeline.targets import run_targets
+
+    seqs = list(dict.fromkeys(s for _, s in libs[20].entries))
+    contig = genome.contigs[0]
+    dev = torch.device("cuda", 0)
+    meshes = {1: make_mesh(devices=[dev]), 4: make_mesh(devices=[dev] * 4)}
+    L, K, P = 20, 128, 16384
+    q = torch.from_numpy(onehot_rows(spacer_matrix(seqs), K)).to(dev, torch.bfloat16)
+    scan = build_scan_array(contig, L).astype(np.int32)
+    mask = site_masks(contig, L, "NGG", "downstream")[0].astype(np.int32)
+
+    # the path, with every launch counter at 0 just before it
+    scan_hits.launches = 0
+    scan_max.launches = 0
+    t0 = time.perf_counter()
+    result = run_targets(libs[20], genome, "NGG", 3, backend="sharded")
+    torch.cuda.synchronize()
+    targets_s = time.perf_counter() - t0
+    hits, block = {}, {}
+    for n, mesh in meshes.items():
+        hits[n] = sharded_scan(seqs, contig, 3, "NGG", mesh=mesh, P=P)
+        block[n] = sharded_scan_block_max(q, scan, mask, mesh, L=L, K=K, P=P)
+    torch.cuda.synchronize()
+    launches = {"scan_hits": scan_hits.launches, "scan_max": scan_max.launches}
+    log(f"phase 5: launches on the sharded path {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the sharded path never launched the {name} kernel")
+
+    check_planted(result, plants[20], contig.length)
+    pd.testing.assert_frame_equal(result.table,
+                                  run_targets(libs[20], genome, "NGG", 3, backend="cuda").table)
+    index = {s: i for i, s in enumerate(seqs)}
+    planted = {(index[g], pos, 0 if strand == "F" else 1, 0) for g, pos, strand, _ in plants[20]}
+    out = dict(launches=launches, targets_sharded_s=targets_s, hits=len(cuda_hits))
+    max_err = 0.0
+    for n in meshes:
+        if not same_hits(hits[n], cuda_hits):
+            raise AssertionError(f"sharded Hits on {n} shards differ from the cuda backend's")
+        got = set(zip(hits[n].spacer_idx.tolist(), hits[n].pos.tolist(),
+                      hits[n].strand.tolist(), hits[n].mismatches.tolist()))
+        if not planted <= got:
+            raise AssertionError(f"planted guides missing on {n} shards: {planted - got}")
+        with plain_block_max():
+            want_max, want_totals = sharded_scan_block_max(q, scan, mask, meshes[n], L=L, K=K,
+                                                           P=P)
+        if not (np.array_equal(block[n][0], want_max)
+                and np.array_equal(block[n][1], want_totals)):
+            raise AssertionError(f"block max on {n} shards differs from its plain version")
+        max_err = max(max_err, float(np.abs(block[n][0] - want_max).max()))
+        log(f"phase 5: {n} shard(s): Hits == cuda Hits ({len(cuda_hits)}), planted found; "
+            f"block_max {block[n][0].shape} and totals == plain")
+    out["block_max_err"] = max_err
+
+    contig_list = [contig]
+    out["walls_s"] = {
+        "cuda": walls(lambda: scan_contigs(seqs, contig_list, 3, "NGG", backend="cuda")),
+        **{f"sharded_{n}": walls(lambda m=m: sharded_scan(seqs, contig, 3, "NGG", mesh=m, P=P))
+           for n, m in meshes.items()},
+        **{f"block_max_{n}": walls(lambda m=m: sharded_scan_block_max(q, scan, mask, m, L=L,
+                                                                      K=K, P=P))
+           for n, m in meshes.items()},
+    }
+    with plain_block_max():
+        out["walls_s"].update({f"block_max_plain_{n}": walls(lambda m=m: sharded_scan_block_max(
+            q, scan, mask, m, L=L, K=K, P=P)) for n, m in meshes.items()})
+    log(f"phase 5 steady walls (s): {out['walls_s']}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "barcoder_tpu_torch.parallel.scaling", "4600000", "10240",
+         "--engine", "both", "--single-chip"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"scaling harness failed:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout)
+    out["harness"] = report
+    out["harness_s"] = time.perf_counter() - t0
+    log(f"phase 5 harness ({out['harness_s']:.2f} s): {json.dumps(report)}")
+    if report["flagship"][0]["hits"] != report["single_chip"]["hits"]:
+        raise AssertionError("harness: sharded and single-card hit counts differ")
+    # each timed row went through its kernel (the harness counts launches)
+    for rows, kernel in ((report["flagship"], "scan_hits"), (report["blockmax"], "scan_max"),
+                         ([report["single_chip"]], "scan_hits")):
+        for row in rows:
+            if row["launches"][kernel] == 0:
+                raise AssertionError(f"harness row {row} never launched the {kernel} kernel")
+    out["harness_launches"] = {
+        "scan_hits": sum(r["launches"]["scan_hits"]
+                         for r in report["flagship"] + [report["single_chip"]]),
+        "scan_max": sum(r["launches"]["scan_max"] for r in report["blockmax"]),
+    }
+    out["harness_block_max"] = harness_block_max(meshes[1], P)
+    return out
+
+
+def harness_block_max(mesh, P: int) -> dict:
+    """The harness's block-max workload in this process: the kernel's
+    block_max and totals against the plain version's on the same shards,
+    and every spacer (a genome window) scoring L, an exact match, in its
+    own block at its own window's tile."""
+    from barcoder_tpu_torch.ops import scan_max
+    from barcoder_tpu_torch.parallel.scaling import _make_workload, blockmax_inputs
+    from barcoder_tpu_torch.parallel.sharded_scan import sharded_scan_block_max
+
+    L = 20
+    contig, spacers = _make_workload(N_GENOME, 10240, L)
+    q, scan, mask, K = blockmax_inputs(contig, spacers, L, mesh.devices.ravel()[0])
+    scan_max.launches = 0
+    got_max, got_totals = sharded_scan_block_max(q, scan, mask, mesh, L=L, K=K, P=P)
+    torch.cuda.synchronize()
+    launches = scan_max.launches
+    if launches == 0:
+        raise AssertionError("the harness's block max never launched the scan_max kernel")
+    with plain_block_max():
+        want_max, want_totals = sharded_scan_block_max(q, scan, mask, mesh, L=L, K=K, P=P)
+    if not (np.array_equal(got_max, want_max) and np.array_equal(got_totals, want_totals)):
+        raise AssertionError("the harness's block max differs from its plain version")
+    i = np.arange(len(spacers))
+    if not (got_max[(64 + 11 * i) // P, 0, i // 128] == L).all():
+        raise AssertionError("a harness spacer does not score L at its own window")
+    log(f"phase 5 harness block max: {got_max.shape} and totals == plain, "
+        f"{len(spacers)} spacers score {L} at their windows, {launches} launches")
+    return dict(launches=launches, max_abs_err=float(np.abs(got_max - want_max).max()))
 
 
 # --- phase 4 (--profile) -----------------------------------------------------
@@ -353,6 +613,95 @@ def phase4_profile(genome, libs, trace_dir: str, reps: int = 3) -> dict:
     return out
 
 
+def _union_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals in microseconds, in ms."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def device_and_host(prof, wall_s: float) -> dict:
+    """One profiled call split into device and host time: each card's busy
+    time (the union of its kernels and copies), the time any card was
+    busy, the device idle share of the wall, the largest device events,
+    and the host's top-level torch ops, whose sum left out of the wall is
+    Python and numpy work outside torch."""
+    per_card, host = {}, {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            per_card.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+        elif e.cpu_parent is None:
+            host[e.name] = host.get(e.name, 0.0) + e.cpu_time_total / 1e3
+    any_ms = _union_ms([iv for ivs in per_card.values() for iv in ivs])
+    dev = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+                 key=lambda d: -d[1])
+    host_top = sorted(host.items(), key=lambda kv: -kv[1])
+    return dict(
+        card_busy_ms={f"cuda:{i}": _union_ms(ivs) for i, ivs in sorted(per_card.items())},
+        any_card_busy_ms=any_ms,
+        device_idle_share=1.0 - any_ms / (wall_s * 1e3),
+        torch_ops_host_ms=sum(host.values()),
+        outside_torch_host_ms=wall_s * 1e3 - sum(host.values()),
+        top_device=[dict(name=k[:110], ms=ms, count=n) for k, ms, n in dev[:8]],
+        top_host=[dict(name=k[:110], ms=ms) for k, ms in host_top[:8]],
+    )
+
+
+def phase4_profile_sharded(trace_dir: str, reps: int = 3) -> dict:
+    """The scaling harness's workload (4.6 Mb random circular genome,
+    10,240 genome windows, NGG, v = 1, P = 16,384) through the flagship
+    sharded_scan and sharded_scan_block_max, on one card and, where there
+    are several, on one shard per card: steady walls, then one call under
+    torch.profiler split into device and host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from barcoder_tpu_torch.parallel.mesh import make_mesh
+    from barcoder_tpu_torch.parallel.scaling import _make_workload, blockmax_inputs
+    from barcoder_tpu_torch.parallel.sharded_scan import sharded_scan, sharded_scan_block_max
+
+    L, P = 20, 16384
+    contig, spacers = _make_workload(N_GENOME, 10240, L)
+    q, scan, mask, K = blockmax_inputs(contig, spacers, L, torch.device("cuda", 0))
+    n_cards = torch.cuda.device_count()
+    meshes = {1: make_mesh(1), **({n_cards: make_mesh()} if n_cards > 1 else {})}
+    out = {}
+    for n, mesh in meshes.items():
+        calls = {
+            f"flagship_{n}": lambda m=mesh: sharded_scan(spacers, contig, 1, pam="NGG",
+                                                          mesh=m, P=P),
+            f"block_max_{n}": lambda m=mesh: sharded_scan_block_max(q, scan, mask, m, L=L,
+                                                                     K=K, P=P),
+        }
+        for name, fn in calls.items():
+            steady = walls(fn, reps + 1)[1:]  # the first call builds the shard state
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{name}.json"))
+            out[name] = dict(steady_walls_s=steady, profiled_wall_s=wall,
+                             **device_and_host(prof, wall))
+            r = out[name]
+            log(f"phase 4 {name} ({n} card(s)): steady walls {steady} s; profiled "
+                f"{wall:.6f} s, card busy {r['card_busy_ms']} ms, any card "
+                f"{r['any_card_busy_ms']:.4f} ms, device idle share "
+                f"{r['device_idle_share']:.4f}, torch ops on the host "
+                f"{r['torch_ops_host_ms']:.4f} ms, outside torch "
+                f"{r['outside_torch_host_ms']:.4f} ms")
+            for d in r["top_device"]:
+                log(f"   device {d['ms']:10.4f} ms  x{d['count']:5d}  {d['name']}")
+            for h in r["top_host"]:
+                log(f"   host   {h['ms']:10.4f} ms  {h['name']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card")
     ap.add_argument("--profile", metavar="DIR", default=None,
@@ -360,37 +709,66 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
-    from barcoder_tpu_torch.ops import scan_hits
+    from barcoder_tpu_torch.ops import nvcc
 
     kind = torch.cuda.get_device_name(0)
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
 
     t0 = time.perf_counter()
-    lib_path = scan_hits.build_library()
+    libs_built = nvcc.build_libraries()
     build_s = time.perf_counter() - t0
-    log(f"phase 1: built {os.path.relpath(lib_path)} in {build_s:.2f} s")
-    log(lib_path.with_suffix(".log").read_text().strip())
+    for name, lib_path in libs_built.items():
+        log(f"phase 1: built {os.path.relpath(lib_path)}")
+        log(lib_path.with_suffix(".log").read_text().strip())
+    log(f"phase 1: built {len(libs_built)} kernels in {build_s:.2f} s")
 
     k = phase2_kernel_vs_plain()
+    k2b = phase2b_max_kernel_vs_plain()
     rec, genome, libs, plants = build_inputs()
     main_path = phase3_main_path(rec, genome, libs, plants)
-    vs_plain = phase3_hits_vs_plain(genome, libs)
+    vs_plain, cuda_hits = phase3_hits_vs_plain(genome, libs)
     phase3_cli(rec)
-    prof = phase4_profile(genome, libs, args.profile) if args.profile else None
+    sharded = phase5_sharded(genome, libs, plants, cuda_hits)
+    prof = None
+    if args.profile:
+        prof = {"targets": phase4_profile(genome, libs, args.profile),
+                "sharded": phase4_profile_sharded(args.profile)}
 
-    head = k["L20_fold2"]
-    log(json.dumps({"build_s": build_s, "phase2": k, "phase3": main_path,
-                    "hits_vs_plain": vs_plain, "profile": prof}))
+    head, head_max = k["L20_fold2"], k2b["L20_additive_SUB1"]
+    log(json.dumps({"build_s": build_s, "phase2": k, "phase2b": k2b, "phase3": main_path,
+                    "hits_vs_plain": vs_plain, "phase5": sharded, "profile": prof}))
+    # launches per path, each path's counts taken from 0 just before it
+    by_path = {
+        "scan_hits": {"targets_cuda": main_path["launches"],
+                      "sharded": sharded["launches"]["scan_hits"],
+                      "harness": sharded["harness_launches"]["scan_hits"]},
+        "scan_max": {"sharded": sharded["launches"]["scan_max"],
+                     "harness": sharded["harness_launches"]["scan_max"],
+                     "harness_block_max": sharded["harness_block_max"]["launches"]},
+    }
     log(json.dumps({"kernels": [{
         "name": "scan_hits",
         "route": "cuda",
         "source": "barcoder_tpu_torch/csrc/scan_hits.cu",
         "replaces": "barcoder_tpu/ops/pallas_scan.py:124",
-        "launches": main_path["launches"],
+        "launches": sum(by_path["scan_hits"].values()),
+        "launches_by_path": by_path["scan_hits"],
         "max_abs_err": max(c["max_abs_err"] for c in k.values()),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
+    }, {
+        "name": "scan_max",
+        "route": "cuda",
+        "source": "barcoder_tpu_torch/csrc/scan_max.cu",
+        "replaces": "barcoder_tpu/ops/pallas_scan.py:77",
+        "launches": sum(by_path["scan_max"].values()),
+        "launches_by_path": by_path["scan_max"],
+        "max_abs_err": max([c["max_abs_err"] for c in k2b.values()]
+                           + [sharded["block_max_err"],
+                              sharded["harness_block_max"]["max_abs_err"]]),
+        "ms": head_max["ms"],
+        "plain_ms": head_max["plain_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from barcoder_tpu.core.genome import contig_from_record
-from barcoder_tpu_torch.ops import scan_hits
+from barcoder_tpu_torch.ops import scan_hits, scan_max
 from barcoder_tpu_torch.ops.cuda_scan import (
     _QPrep, _ScanJob, cuda_scan, cuda_scan_contigs, onehot_rows,
 )
@@ -85,6 +85,35 @@ def make_case(L, mode, matrix_rows, seed):
     return thresh, q, np.ascontiguousarray(tiles), bias
 
 
+def make_max_case(L, fold, n_blocks, seed, P=512, n_tiles=2, n_pad=40):
+    """numpy inputs for one block-max kernel call: genome codes with N (4)
+    and the out-of-bounds sentinel (5); n_blocks spacer blocks of 128 rows
+    cut from the genome with 0-4 substitutions, the last ``n_pad`` of them
+    zero padding rows (no constant bias column); a random 0 / -16384 bias
+    with the last tile fully masked, as a padded tail tile is — there the
+    padding rows' folded score (0) beats every real row's."""
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(0, 4, (n_tiles, 1, P + K // 4)).astype(np.int32)
+    codes[rng.random(codes.shape) < 0.03] = 4
+    codes[rng.random(codes.shape) < 0.01] = 5
+    S_pad = 128 * n_blocks
+    qc = np.empty((S_pad, L), np.int8)
+    for i in range(S_pad):
+        t, p = rng.integers(n_tiles), rng.integers(P)
+        w = np.minimum(codes[t, 0, p : p + L], 4)
+        k = rng.integers(0, 5)
+        idx = rng.choice(L, k, replace=False)
+        w[idx] = rng.integers(0, 5, k)
+        qc[i] = w
+    q = onehot_rows(qc, K)
+    if 4 * L < K:
+        q[:, 4 * L] = 1  # the fold column; additive mode must ignore it
+    q[S_pad - n_pad :] = 0
+    bias = np.where(rng.random((n_tiles, 1, P)) < 0.5, 0.0, -16384.0).astype(np.float32)
+    bias[-1] = -16384.0
+    return q, codes, bias
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -134,6 +163,45 @@ def test_cuda_kernel_rejects_bad_inputs(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("fold,L", [(True, 20), (True, 24), (False, 20), (False, 24), (False, 32)])
+def test_cuda_max_kernel_matches_plain(cuda, fold, L):
+    """The block-max CUDA kernel against its plain torch version on the
+    card, bit-equal, with and without fold, at SUB 1, 4 and 32 (subtiles
+    of 512, 128 and 16 columns) and 1-3 spacer blocks."""
+    for n_blocks, SUB in ((1, 1), (2, 4), (3, 32)):
+        q, codes, bias = make_max_case(L, fold, n_blocks, seed=L + n_blocks)
+        args = (torch.from_numpy(q).to(cuda, torch.bfloat16), torch.from_numpy(codes).to(cuda),
+                torch.from_numpy(bias).to(cuda))
+        kw = dict(L=L, K=K, P=P, SUB=SUB, fold_bias=fold)
+        before = scan_max.launches
+        got = scan_max.scan_block_max(*args, **kw)
+        assert scan_max.launches == before + 1
+        want = scan_max.scan_block_max_reference(*args, **kw)
+        assert scan_max.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert (want[:, :, :n_blocks] > -16384).any() and (want[:, :, n_blocks:] == -16384).all()
+
+
+@pytest.mark.gpu
+def test_cuda_max_kernel_rejects_bad_inputs(cuda):
+    q, codes, bias = make_max_case(20, True, 1, seed=1)
+    args = [torch.from_numpy(q).to(cuda, torch.bfloat16), torch.from_numpy(codes).to(cuda),
+            torch.from_numpy(bias).to(cuda)]
+    kw = dict(L=20, K=K, P=P, SUB=4, fold_bias=True)
+    bad = list(args)
+    bad[0] = args[0].float()
+    with pytest.raises(ValueError, match="bfloat16"):
+        scan_max.scan_block_max(*bad, **kw)
+    bad = list(args)
+    bad[1] = args[1].cpu()
+    with pytest.raises(ValueError, match="tiles"):
+        scan_max.scan_block_max(*bad, **kw)
+    with pytest.raises(ValueError, match="spare G row"):
+        scan_max.scan_block_max(*args, **dict(kw, L=32))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("L,pam,v", [(20, "NGG", 2), (32, "NGNC", 1), (20, "", 1)])
 @pytest.mark.parametrize("topology", ["circular", "linear"])
 def test_cuda_engine_matches_oracle(cuda, topology, L, pam, v):
@@ -159,6 +227,54 @@ def test_cuda_engine_matches_oracle(cuda, topology, L, pam, v):
             assert np.array_equal(getattr(got, f), getattr(want, f)), f
     hits = set(zip(want.spacer_idx.tolist(), want.pos.tolist()))
     assert all((i, 100 + 800 * i) in hits for i in range(len(guides)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,pam,v", [(20, "NGG", 2), (32, "NGNC", 1)])
+def test_sharded_matches_cuda_engine(cuda, monkeypatch, L, pam, v):
+    """The sharded engine on 1 and 4 shards of the card, and on every card
+    where there are several (kernel phase 1 per shard), gives the
+    one-device engine's Hits; the block-max API's kernel gives its plain
+    version's block_max and totals."""
+    from barcoder_tpu_torch.ops.cuda_scan import onehot_rows
+    from barcoder_tpu_torch.ops.prep import build_scan_array, site_masks
+    from barcoder_tpu_torch.parallel import sharded_scan as sharded_scan_mod
+    from barcoder_tpu_torch.parallel.mesh import make_mesh
+    from barcoder_tpu_torch.parallel.sharded_scan import sharded_scan, sharded_scan_block_max
+
+    rng = np.random.default_rng(L + 7)
+    rec = make_record(n=40_000, topology="circular", seed=L)
+    guides = [random_seq(L, rng) for _ in range(300)]
+    for i in range(0, 300, 25):
+        plant_guide(rec, guides[i], 100 + 3000 * (i // 25), pam="AGG" if L == 20 else "AGTC",
+                    strand="F" if i % 2 else "R")
+    contig = contig_from_record(rec)
+    want = cuda_scan(guides, contig, v, pam, device=cuda)
+    assert {(i, 100 + 3000 * (i // 25)) for i in range(0, 300, 25)} <= set(
+        zip(want.spacer_idx.tolist(), want.pos.tolist()))
+    q = torch.from_numpy(onehot_rows(spacer_matrix(guides), K)).to(cuda, torch.bfloat16)
+    scan = build_scan_array(contig, L).astype(np.int32)
+    mask = site_masks(contig, L, pam, "downstream")[0].astype(np.int32)
+    meshes = [make_mesh(devices=[cuda] * n) for n in (1, 4)]
+    if torch.cuda.device_count() > 1:  # one shard per card
+        meshes.append(make_mesh())
+    for mesh in meshes:
+        n = mesh.devices.size
+        for P_tile in (512, 16384):
+            before = scan_hits.launches
+            got = sharded_scan(guides, contig, v, pam, mesh=mesh, P=P_tile)
+            assert scan_hits.launches > before
+            for f in ("spacer_idx", "pos", "strand", "mismatches"):
+                assert np.array_equal(getattr(got, f), getattr(want, f)), (mesh.devices.tolist(), P_tile, f)
+        before = scan_max.launches
+        got_max, got_totals = sharded_scan_block_max(q, scan, mask, mesh, L=L, K=K, P=2048)
+        assert scan_max.launches == before + n
+        with monkeypatch.context() as m:  # the plain version on the same shards
+            m.setattr(sharded_scan_mod, "scan_block_max", scan_max.scan_block_max_reference)
+            want_max, want_totals = sharded_scan_block_max(q, scan, mask, mesh, L=L, K=K, P=2048)
+        assert scan_max.launches == before + n
+        assert np.array_equal(got_max, want_max) and np.array_equal(got_totals, want_totals)
+        assert (want_max.max(axis=(0, 1))[:3] >= L - v).all()
 
 
 @pytest.mark.gpu

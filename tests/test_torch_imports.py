@@ -1,8 +1,9 @@
 """Import rules of the PyTorch port.
 
-* Importing ``barcoder_tpu_torch`` and running its ``targets`` CLI leaves
-  ``jax`` out of ``sys.modules`` (checked in a fresh interpreter, since this
-  test process has imported jax already).
+* Importing ``barcoder_tpu_torch`` and running its ``targets`` CLI (also
+  with the ``sharded`` backend) and its scaling harness leaves ``jax`` out
+  of ``sys.modules`` (checked in a fresh interpreter, since this test
+  process has imported jax already).
 * The modules the port copies from the JAX package differ from their
   originals in import lines only (exact line comparison).
 """
@@ -67,6 +68,50 @@ def test_port_and_its_cli_never_import_jax(tmp_path):
     lines = proc.stdout.splitlines()
     assert lines[0].startswith("spacer\t")
     assert any(line.startswith(g) and "\t700\t" in line for line in lines[1:])
+
+
+_SHARDED_PROBE = """
+import io, json, sys
+from contextlib import redirect_stdout
+from barcoder_tpu_torch.cli.main import main
+from barcoder_tpu_torch.parallel.scaling import measure_scaling
+outs = []
+for backend in ("torch", "sharded"):
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = main(["targets", sys.argv[1], sys.argv[2], "NGG", "0", "--backend", backend])
+    outs.append((rc, buf.getvalue()))
+report = measure_scaling(n_bp=4096, n_spacers=8, engine="both", device_counts=[1, 2], repeats=1)
+print(outs[1][1], end="")
+print(json.dumps({"rc": [rc for rc, _ in outs], "same": outs[0][1] == outs[1][1],
+                  "engines": [k for k in ("flagship", "blockmax") if k in report],
+                  "jax": sorted(m for m in sys.modules
+                                if m == "jax" or m.startswith(("jax.", "jaxlib")))}),
+      file=sys.stderr)
+"""
+
+
+def test_sharded_backend_and_scaling_never_import_jax(tmp_path):
+    """The sharded backend through the CLI, and the scaling harness, in a
+    fresh interpreter: no jax, and the sharded TSV equals the torch one."""
+    rng = np.random.default_rng(4)
+    rec = make_record(n=5000, seed=4, n_genes=4)
+    g = random_seq(20, rng)
+    plant_guide(rec, g, 1900, pam="AGG", strand="R")
+    write_genbank([rec], tmp_path / "genome.gb")
+    (tmp_path / "lib.fasta").write_text(f">g1\n{g}\n>miss\n{'C' * 20}\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BARCODER_TPU")}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _SHARDED_PROBE, str(tmp_path / "lib.fasta"),
+         str(tmp_path / "genome.gb")],
+        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    report = json.loads(proc.stderr.strip().splitlines()[-1])
+    assert report == {"rc": [0, 0], "same": True, "engines": ["flagship", "blockmax"],
+                      "jax": []}
+    assert any(line.startswith(g) and "\t1900\t" in line for line in proc.stdout.splitlines())
 
 
 def _without_imports(path: Path) -> list[str]:
