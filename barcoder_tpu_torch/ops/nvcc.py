@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one self-contained source, ``csrc/<name>.cu``, with a plain C
-launcher that returns the CUDA error code. At first use it is compiled with
-``nvcc`` for sm_90a into the checkout's git-ignored
-``build/barcoder_tpu_torch/<name>-<hash>.so`` (keyed by a hash of the source
-and the flags, so an edit rebuilds) and loaded with ctypes; the ptxas report
-(registers, shared memory, spills) lands beside it as a ``.log`` file.
+Each kernel is one source, ``csrc/<name>.cu`` (which may include the shared
+``csrc/*.cuh`` headers), with a plain C launcher that returns the CUDA error
+code. At first use it is compiled with ``nvcc`` for sm_90a into the
+checkout's git-ignored ``build/barcoder_tpu_torch/<name>-<hash>.so`` (keyed
+by a hash of the source, the headers and the flags, so an edit rebuilds) and
+loaded with ctypes; the ptxas report (registers, shared memory, spills)
+lands beside it as a ``.log`` file, and :func:`ptxas_report` reads it.
 :func:`build_libraries` starts one nvcc process per missing source, all at
 once, so a fresh checkout builds every kernel in the time of the slowest.
 """
@@ -15,11 +16,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
-KERNELS = ("scan_hits", "scan_max")
+KERNELS = ("scan_hits", "scan_max", "colmax_mma", "phase1_mma")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # the kernels build into the source checkout's build/ (as
 # barcoder_tpu/native_bridge.py builds its library), so the package runs from
@@ -45,6 +47,7 @@ def _find_nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the current build of ``csrc/<name>.cu`` lives (built or not)."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
@@ -90,3 +93,25 @@ def launcher(name: str, fn_name: str, argtypes: list):
         fn.restype = ctypes.c_int
         _FUNCS[(name, fn_name)] = fn
     return fn
+
+
+def ptxas_report(name: str) -> list[dict]:
+    """Per kernel function of the current build of ``csrc/<name>.cu``: its
+    (demangled where ``c++filt`` exists) name, registers and spill bytes,
+    read from the ptxas log written beside the library."""
+    text = library_path(name).with_suffix(".log").read_text()
+    out = []
+    for block in text.split("Compiling entry function '")[1:]:
+        fn = block.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+        out.append(dict(function=fn, registers=int(regs.group(1)) if regs else None,
+                        spill_stores=int(spill.group(1)) if spill else 0,
+                        spill_loads=int(spill.group(2)) if spill else 0))
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and out:
+        names = subprocess.run([cxxfilt], input="\n".join(r["function"] for r in out),
+                               capture_output=True, text=True, check=True).stdout.split("\n")
+        for r, n in zip(out, names):
+            r["function"] = n
+    return out

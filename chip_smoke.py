@@ -6,7 +6,7 @@
 
 Phases (any failure is a non-zero exit; nothing is caught):
 
-1. build both CUDA kernels from ``barcoder_tpu_torch/csrc/`` with nvcc for
+1. build every CUDA kernel from ``barcoder_tpu_torch/csrc/`` with nvcc for
    sm_90a, one nvcc process per source, started together;
 2. hold the phase-1 hit kernel (``scan_hits``) against its plain torch
    version on the card, bit-equal, at the main path's shapes (P = 16384,
@@ -38,6 +38,17 @@ Phases (any failure is a non-zero exit; nothing is caught):
    process, with the launch count at 0 before it: block_max and totals
    equal to the plain version's, and every spacer scoring L at its own
    genome window.
+6. the three experiment kernels (the ports of ``experiments/int8_bench.py``,
+   ``phase1_ablate.py`` and ``phase1_bench.py``) at their scripts' full
+   shapes: the column max in int8 and bf16 (16 tiles x 40 blocks x 512
+   rows x 16,384 columns), every phase-1 ablation (A-D) and epilogue (a-d)
+   variant (320 tiles x 40 blocks x 512 rows x 16,384 columns), each held
+   bit-equal against its plain version and timed beside it, with its
+   registers (ptxas; no kernel may spill) and the popcount ``scan_hits``
+   kernel's time on the same inputs; then each entry point
+   (``python -m barcoder_tpu_torch.experiments.<name>``) once in this
+   process, with the launch counts at 0 before each: each must launch its
+   kernel.
 
 The kernels line gives each kernel's launches per path (``launches_by_path``,
 each path's count taken from 0 just before it) and their sum.
@@ -55,7 +66,7 @@ time, the device idle share and the host's torch ops
 (``DIR/trace_{flagship,block_max}_{1,N}.json``).
 
 Prints the card's name and power limit, one JSON line of kernel results
-(both kernels), and last ``{"ok": true, "device": {...}}``.
+(five kernels), and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -72,6 +83,8 @@ import time
 import numpy as np
 import torch
 
+from barcoder_tpu_torch.experiments import card_line, cuda_ms
+
 N_GENOME = 4_600_000
 N_GENES = 4200
 N_SPACERS = 9_984  # the 20-nt library of request 1
@@ -82,26 +95,6 @@ SEED = 0
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[0]
-
-
-def cuda_ms(fn, reps: int = 5) -> float:
-    fn()
-    torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
 
 
 # --- phase 2 -----------------------------------------------------------------
@@ -570,6 +563,129 @@ def harness_block_max(mesh, P: int) -> dict:
     return dict(launches=launches, max_abs_err=float(np.abs(got_max - want_max).max()))
 
 
+# --- phase 6 -----------------------------------------------------------------
+
+def _registers(report, pattern: str):
+    regs = [r["registers"] for r in report if pattern in r["function"]]
+    return regs[0] if len(regs) == 1 else None
+
+
+def _kernel_vs_plain(name: str, fn, plain, pairs: int, registers, **extra) -> dict:
+    """Hold ``fn`` against ``plain`` (bit-equal) and time both."""
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    err = float((got.double() - want.double()).abs().max())
+    del got, want
+    ms = cuda_ms(fn)
+    plain_ms = cuda_ms(plain, reps=2)
+    rate = pairs / (ms / 1e3)
+    log(f"phase 6 {name}: bit-equal, max_abs_err {err}, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, {rate:.4e} pairs/s, {registers} registers"
+        + "".join(f", {k} {v:.4f}" for k, v in extra.items()))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, pairs_per_s=rate,
+                registers=registers, **extra)
+
+
+def phase6_experiment_kernels() -> dict:
+    """The three experiment kernels at their scripts' full shapes, every
+    variant held bit-equal against its plain version and timed beside it;
+    for the phase-1 variants also beside the popcount scan_hits kernel on
+    the same inputs (the scripts' random inputs with planted hits and 30%
+    masked columns, so the epilogues count something)."""
+    from barcoder_tpu_torch.experiments import (
+        int8_bench, int8_inputs, int8_tensors, phase1_ablate, phase1_inputs, phase1_tensors,
+        plant_hits,
+    )
+    from barcoder_tpu_torch.ops import colmax_mma, nvcc, phase1_variants, scan_hits
+
+    report = {n: nvcc.ptxas_report(n) for n in ("colmax_mma", "phase1_mma")}
+    for name, rows in report.items():
+        for r in rows:
+            log(f"phase 6 ptxas {name}: {r}")
+            if r["spill_stores"] or r["spill_loads"]:
+                raise AssertionError(f"{r['function']} spills registers")
+    dev = torch.device("cuda")
+    out = {"colmax_mma": {}, "phase1_ablate": {}, "phase1_epilogue": {}}
+
+    m = int8_bench
+    q8, g8 = int8_inputs(m.N_TILES, m.N_SB, BS_M=m.BS_M, K=m.K, P=m.P, seed=SEED)
+    pairs = m.N_TILES * m.N_SB * m.BS_M * m.P
+    for mode, dtype in m.DTYPES.items():
+        q, g = int8_tensors(q8, g8, dtype, dev)
+        od = colmax_mma.OUT_DTYPE[dtype]
+        out["colmax_mma"][mode] = _kernel_vs_plain(
+            f"colmax_mma {mode}", lambda: colmax_mma.colmax(q, g, od, BS_M=m.BS_M),
+            lambda: colmax_mma.colmax_reference(q, g, od, BS_M=m.BS_M), pairs,
+            _registers(report["colmax_mma"], "S8" if mode == "int8" else "Bf16"))
+    del q, g
+
+    a = phase1_ablate
+    thresh, q, tiles, bias = phase1_inputs(a.N_TILES, a.N_SB, L=a.L, K=a.K, P=a.P, BS_M=a.BS_M,
+                                           mask_share=0.3, seed=SEED)
+    plant_hits(q, tiles, L=a.L, P=a.P, seed=SEED + 1)
+    th, q, tiles, bias = phase1_tensors(thresh, q, tiles, bias, dev)
+    kw = dict(L=a.L, K=a.K, P=a.P, SUB=a.SUB, BS_M=a.BS_M)
+    pairs = a.N_TILES * a.N_SB * a.BS_M * a.P
+    popcount = scan_hits.scan_block_hits(th, q, tiles, bias, fold_bias=True, **kw)
+    popcount_ms = cuda_ms(lambda: scan_hits.scan_block_hits(th, q, tiles, bias, fold_bias=True,
+                                                            **kw))
+    log(f"phase 6 scan_hits (popcount) at the same shapes: {popcount_ms:.4f} ms, "
+        f"{pairs / (popcount_ms / 1e3):.4e} pairs/s, {int(popcount.sum())} hit columns")
+    if popcount.sum() == 0:
+        raise AssertionError("phase 6 inputs give no hits")
+    g_all = phase1_variants.build_g_all(tiles, bias, L=a.L, K=a.K, P=a.P)
+    for v, (source, epi) in phase1_variants.ABLATE.items():
+        out["phase1_ablate"][v] = _kernel_vs_plain(
+            f"phase1_ablate {v} ({source}, {epi})",
+            lambda v=v: phase1_variants.ablate(v, th, q, tiles, bias, g_all, **kw),
+            lambda v=v: phase1_variants.ablate_reference(v, th, q, tiles, bias, g_all, **kw),
+            pairs, _registers(report["phase1_mma"], "phase1_mma_kernel<"
+                              f"{str(source == 'streamed').lower()}, "
+                              f"{phase1_variants.EPILOGUE[epi]}>"),
+            popcount_ms=popcount_ms)
+    if not torch.equal(phase1_variants.ablate("A", th, q, tiles, bias, g_all, **kw), popcount):
+        raise AssertionError("phase1_ablate A disagrees with the popcount scan_hits kernel")
+    del g_all, popcount
+    for v, epi in phase1_variants.BENCH.items():
+        out["phase1_epilogue"][v] = _kernel_vs_plain(
+            f"phase1_epilogue {v} ({epi})",
+            lambda v=v: phase1_variants.bench_full(v, th, q, tiles, bias, **kw),
+            lambda v=v: phase1_variants.bench_full_reference(v, th, q, tiles, bias, **kw),
+            pairs, _registers(report["phase1_mma"],
+                              f"phase1_mma_kernel<false, {phase1_variants.EPILOGUE[epi]}>"),
+            popcount_ms=popcount_ms)
+    out["scan_hits_popcount_ms"] = popcount_ms
+    return out
+
+
+def phase6_entry_points() -> dict:
+    """Each experiment entry point once, in this process, with the launch
+    counts at 0 just before it: launches per kernel on each path."""
+    from barcoder_tpu_torch.experiments import int8_bench, phase1_ablate, phase1_bench
+    from barcoder_tpu_torch.ops import colmax_mma, phase1_variants, scan_hits
+
+    by_path = {}
+    for name, mod in (("int8_bench", int8_bench), ("phase1_ablate", phase1_ablate),
+                      ("phase1_bench", phase1_bench)):
+        colmax_mma.launches = 0
+        phase1_variants.launches = dict.fromkeys(phase1_variants.launches, 0)
+        scan_hits.launches = 0
+        t0 = time.perf_counter()
+        if mod.main([]) != 0:
+            raise AssertionError(f"{name} failed")
+        torch.cuda.synchronize()
+        by_path[name] = {"colmax_mma": colmax_mma.launches, **phase1_variants.launches,
+                         "scan_hits": scan_hits.launches}
+        log(f"phase 6 {name} ({time.perf_counter() - t0:.2f} s): launches {by_path[name]}")
+    for kernel, path in (("colmax_mma", "int8_bench"), ("phase1_ablate", "phase1_ablate"),
+                         ("phase1_epilogue", "phase1_bench"), ("scan_hits", "phase1_bench")):
+        if by_path[path][kernel] == 0:
+            raise AssertionError(f"{path} never launched the {kernel} kernel")
+    return by_path
+
+
 # --- phase 4 (--profile) -----------------------------------------------------
 
 def phase4_profile(genome, libs, trace_dir: str, reps: int = 3) -> dict:
@@ -730,46 +846,59 @@ def main(argv=None) -> int:
     vs_plain, cuda_hits = phase3_hits_vs_plain(genome, libs)
     phase3_cli(rec)
     sharded = phase5_sharded(genome, libs, plants, cuda_hits)
+    experiments = phase6_experiment_kernels()
+    entry_points = phase6_entry_points()
     prof = None
     if args.profile:
         prof = {"targets": phase4_profile(genome, libs, args.profile),
                 "sharded": phase4_profile_sharded(args.profile)}
 
-    head, head_max = k["L20_fold2"], k2b["L20_additive_SUB1"]
     log(json.dumps({"build_s": build_s, "phase2": k, "phase2b": k2b, "phase3": main_path,
-                    "hits_vs_plain": vs_plain, "phase5": sharded, "profile": prof}))
+                    "hits_vs_plain": vs_plain, "phase5": sharded, "phase6": experiments,
+                    "phase6_entry_points": entry_points, "profile": prof}))
     # launches per path, each path's counts taken from 0 just before it
     by_path = {
         "scan_hits": {"targets_cuda": main_path["launches"],
                       "sharded": sharded["launches"]["scan_hits"],
-                      "harness": sharded["harness_launches"]["scan_hits"]},
+                      "harness": sharded["harness_launches"]["scan_hits"],
+                      "phase1_bench": entry_points["phase1_bench"]["scan_hits"]},
         "scan_max": {"sharded": sharded["launches"]["scan_max"],
                      "harness": sharded["harness_launches"]["scan_max"],
                      "harness_block_max": sharded["harness_block_max"]["launches"]},
+        "colmax_mma": {"int8_bench": entry_points["int8_bench"]["colmax_mma"]},
+        "phase1_ablate": {"phase1_ablate": entry_points["phase1_ablate"]["phase1_ablate"]},
+        "phase1_epilogue": {"phase1_bench": entry_points["phase1_bench"]["phase1_epilogue"]},
     }
-    log(json.dumps({"kernels": [{
-        "name": "scan_hits",
-        "route": "cuda",
-        "source": "barcoder_tpu_torch/csrc/scan_hits.cu",
-        "replaces": "barcoder_tpu/ops/pallas_scan.py:124",
-        "launches": sum(by_path["scan_hits"].values()),
-        "launches_by_path": by_path["scan_hits"],
-        "max_abs_err": max(c["max_abs_err"] for c in k.values()),
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-    }, {
-        "name": "scan_max",
-        "route": "cuda",
-        "source": "barcoder_tpu_torch/csrc/scan_max.cu",
-        "replaces": "barcoder_tpu/ops/pallas_scan.py:77",
-        "launches": sum(by_path["scan_max"].values()),
-        "launches_by_path": by_path["scan_max"],
-        "max_abs_err": max([c["max_abs_err"] for c in k2b.values()]
-                           + [sharded["block_max_err"],
-                              sharded["harness_block_max"]["max_abs_err"]]),
-        "ms": head_max["ms"],
-        "plain_ms": head_max["plain_ms"],
-    }]}))
+
+    def kernel(name, source, replaces, err, head, variants=None):
+        row = {"name": name, "route": "cuda", "source": f"barcoder_tpu_torch/csrc/{source}",
+               "replaces": replaces, "launches": sum(by_path[name].values()),
+               "launches_by_path": by_path[name], "max_abs_err": err, "ms": head["ms"],
+               "plain_ms": head["plain_ms"]}
+        if variants:
+            row["variants"] = {v: {"ms": r["ms"], "plain_ms": r["plain_ms"]}
+                               for v, r in variants.items()}
+        return row
+
+    def worst(cases):
+        return max(c["max_abs_err"] for c in cases.values())
+
+    log(json.dumps({"kernels": [
+        kernel("scan_hits", "scan_hits.cu", "barcoder_tpu/ops/pallas_scan.py:124", worst(k),
+               k["L20_fold2"]),
+        kernel("scan_max", "scan_max.cu", "barcoder_tpu/ops/pallas_scan.py:77",
+               max(worst(k2b), sharded["block_max_err"],
+                   sharded["harness_block_max"]["max_abs_err"]), k2b["L20_additive_SUB1"]),
+        kernel("colmax_mma", "colmax_mma.cu", "experiments/int8_bench.py:14",
+               worst(experiments["colmax_mma"]), experiments["colmax_mma"]["int8"],
+               experiments["colmax_mma"]),
+        kernel("phase1_ablate", "phase1_mma.cu", "experiments/phase1_ablate.py:45",
+               worst(experiments["phase1_ablate"]), experiments["phase1_ablate"]["A"],
+               experiments["phase1_ablate"]),
+        kernel("phase1_epilogue", "phase1_mma.cu", "experiments/phase1_bench.py:48",
+               worst(experiments["phase1_epilogue"]), experiments["phase1_epilogue"]["d"],
+               experiments["phase1_epilogue"]),
+    ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

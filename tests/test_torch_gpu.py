@@ -1,5 +1,5 @@
-"""Card-only tests of the PyTorch port (``gpu`` marker): the CUDA kernel
-against its plain torch version, and the CUDA engine and pipeline against
+"""Card-only tests of the PyTorch port (``gpu`` marker): the CUDA kernels
+against their plain torch versions, and the CUDA engine and pipeline against
 the port's CPU paths. They skip without a CUDA device.
 
 This file imports no jax, so it also runs on a card machine without the
@@ -10,16 +10,24 @@ JAX package's dependencies:
 (``--noconftest`` because tests/conftest.py configures jax). Every
 comparison is EXACT: integer kernel outputs and Hits tables.
 
-It also holds the kernel case generator that test_torch_scan_hits.py uses
-for its CPU comparisons against the Pallas kernel.
+It also holds the kernel case generators that test_torch_scan_hits.py and
+the experiment-kernel tests (test_torch_int8_bench.py,
+test_torch_phase1_ablate.py, test_torch_phase1_bench.py) use for their CPU
+comparisons against the Pallas kernels, and one test that runs everywhere:
+the experiment entry points refuse to run without a card.
 """
+
+import importlib
 
 import numpy as np
 import pytest
 import torch
 
 from barcoder_tpu.core.genome import contig_from_record
-from barcoder_tpu_torch.ops import scan_hits, scan_max
+from barcoder_tpu_torch.experiments import (
+    int8_inputs, int8_tensors, phase1_inputs, phase1_tensors, plant_hits,
+)
+from barcoder_tpu_torch.ops import colmax_mma, phase1_variants, scan_hits, scan_max
 from barcoder_tpu_torch.ops.cuda_scan import (
     _QPrep, _ScanJob, cuda_scan, cuda_scan_contigs, onehot_rows,
 )
@@ -112,6 +120,23 @@ def make_max_case(L, fold, n_blocks, seed, P=512, n_tiles=2, n_pad=40):
     bias = np.where(rng.random((n_tiles, 1, P)) < 0.5, 0.0, -16384.0).astype(np.float32)
     bias[-1] = -16384.0
     return q, codes, bias
+
+
+def make_phase1_case(n_tiles, n_sblocks, *, L, P, BS_M, seed):
+    """numpy inputs of the phase-1 experiment kernels at a small size: the
+    scripts' generator (random spacers, random codes) with MASK_BIAS on 30%
+    of the columns, and hits planted by ``plant_hits`` (genome windows as
+    spacers, some rows with the second bias column 4L + 1)."""
+    thresh, q, tiles, bias = phase1_inputs(n_tiles, n_sblocks, L=L, K=K, P=P, BS_M=BS_M,
+                                           mask_share=0.3, seed=seed)
+    plant_hits(q, tiles, L=L, P=P, seed=seed + 1)
+    return thresh, q, tiles, bias
+
+
+# (n_tiles, n_sblocks, P, BS_M, SUB, L): the TPU-like small case, the batched
+# quirk (12 blocks), and odd sizes (a ragged 256-column chunk at P = 400, a
+# spacer block of 64 + 16 rows, L = 31 filling K with 4L + 2 = 126 rows)
+PHASE1_CASES = [(2, 8, 256, 16, 8, 20), (3, 12, 1024, 64, 8, 20), (3, 11, 400, 80, 8, 31)]
 
 
 @pytest.fixture
@@ -313,3 +338,90 @@ def test_cuda_pipeline_matches_cpu(cuda):
     got = run_targets(lib, genome, "NGG", 2, backend="cuda")
     pd.testing.assert_frame_equal(got.table, want.table)
     assert (got.table["tar_start"] == -10).any()  # the origin-wrapping plant
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("n_tiles,n_sblocks,BS_M,P", [(2, 3, 16, 256), (3, 5, 80, 400),
+                                                     (1, 2, 512, 16384)])
+def test_cuda_colmax_matches_plain(cuda, dtype, n_tiles, n_sblocks, BS_M, P):
+    """The tensor-core column max against its plain version, bit-equal over
+    every column, on 0/1 inputs and (int8) on the whole int8 range."""
+    q, g = int8_inputs(n_tiles, n_sblocks, BS_M=BS_M, K=K, P=P, seed=P + BS_M)
+    cases = [int8_tensors(q, g, dtype, cuda)]
+    if dtype == torch.int8:
+        rng = np.random.default_rng(P)
+        cases.append(int8_tensors(rng.integers(-128, 128, q.shape).astype(np.int8),
+                                  rng.integers(-128, 128, g.shape).astype(np.int8), dtype, cuda))
+    out_dtype = colmax_mma.OUT_DTYPE[dtype]
+    for qt, gt in cases:
+        before = colmax_mma.launches
+        got = colmax_mma.colmax(qt, gt, out_dtype, BS_M=BS_M)
+        assert colmax_mma.launches == before + 1
+        want = colmax_mma.colmax_reference(qt, gt, out_dtype, BS_M=BS_M)
+        torch.cuda.synchronize()
+        assert got.shape == (n_tiles, n_sblocks, P) and got.dtype == out_dtype
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tiles,n_sblocks,P,BS_M,SUB,L", PHASE1_CASES)
+def test_cuda_phase1_variants_match_plain(cuda, n_tiles, n_sblocks, P, BS_M, SUB, L):
+    """Every ablation (A-D) and epilogue (a-d) variant of the tensor-core
+    phase-1 kernel against its plain version, bit-equal, in the kernel's
+    full form; each launch counts once, on its own counter."""
+    th, q, tiles, bias = phase1_tensors(
+        *make_phase1_case(n_tiles, n_sblocks, L=L, P=P, BS_M=BS_M, seed=P + L), cuda)
+    g_all = phase1_variants.build_g_all(tiles, bias, L=L, K=K, P=P)
+    other_g = phase1_variants.build_g_all(tiles.roll(7, dims=2), bias, L=L, K=K, P=P)
+    kw = dict(L=L, K=K, P=P, SUB=SUB, BS_M=BS_M)
+    for variant in phase1_variants.ABLATE:
+        for g in (g_all, other_g):
+            before = dict(phase1_variants.launches)
+            got = phase1_variants.ablate(variant, th, q, tiles, bias, g, **kw)
+            assert phase1_variants.launches == dict(before, phase1_ablate=before["phase1_ablate"] + 1)
+            want = phase1_variants.ablate_reference(variant, th, q, tiles, bias, g, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (variant, g is g_all)
+            assert want.sum() > 0
+    for variant in phase1_variants.BENCH:
+        before = dict(phase1_variants.launches)
+        got = phase1_variants.bench_full(variant, th, q, tiles, bias, **kw)
+        assert phase1_variants.launches == dict(before, phase1_epilogue=before["phase1_epilogue"] + 1)
+        want = phase1_variants.bench_full_reference(variant, th, q, tiles, bias, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), variant
+        lanes = phase1_variants.bench(variant, th, q, tiles, bias, **kw)
+        if variant in "ab":
+            assert torch.equal(lanes, colmax_mma.tpu_lanes(want, SUB, torch.float32))
+        assert (want > 0).any()
+
+
+@pytest.mark.gpu
+def test_cuda_experiment_kernels_reject_bad_inputs(cuda):
+    th, q, tiles, bias = phase1_tensors(
+        *make_phase1_case(2, 8, L=20, P=256, BS_M=16, seed=1), cuda)
+    kw = dict(L=20, K=K, P=256, SUB=8, BS_M=16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        phase1_variants.ablate("A", th, q.float(), tiles, bias, None, **kw)
+    with pytest.raises(ValueError, match="tiles"):
+        phase1_variants.bench_full("a", th, q, tiles.cpu(), bias, **kw)
+    with pytest.raises(ValueError, match="g_all"):
+        phase1_variants.ablate("B", th, q, tiles, bias, None, **kw)
+    with pytest.raises(ValueError, match="BS_M % 16"):
+        phase1_variants.ablate("C", th, q, tiles, bias, None, **dict(kw, BS_M=8))
+    qi, gi = int8_tensors(*int8_inputs(1, 2, BS_M=16, K=K, P=256), torch.int8, cuda)
+    with pytest.raises(ValueError, match="int32"):
+        colmax_mma.colmax(qi, gi, torch.float32, BS_M=16)
+    with pytest.raises(ValueError, match="P % 16"):
+        colmax_mma.colmax(qi, gi[:, :, :200].contiguous(), torch.int32, BS_M=16)
+
+
+@pytest.mark.parametrize("name", ["int8_bench", "phase1_ablate", "phase1_bench"])
+def test_experiment_entry_points_need_cuda(monkeypatch, name):
+    """Without a CUDA device the entry points raise SystemExit; nothing
+    falls back to the CPU."""
+    mod = importlib.import_module(f"barcoder_tpu_torch.experiments.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        mod.main([])

@@ -1,9 +1,9 @@
 """Import rules of the PyTorch port.
 
 * Importing ``barcoder_tpu_torch`` and running its ``targets`` CLI (also
-  with the ``sharded`` backend) and its scaling harness leaves ``jax`` out
-  of ``sys.modules`` (checked in a fresh interpreter, since this test
-  process has imported jax already).
+  with the ``sharded`` backend), its scaling harness and its experiment
+  entry points leaves ``jax`` out of ``sys.modules`` (checked in a fresh
+  interpreter, since this test process has imported jax already).
 * The modules the port copies from the JAX package differ from their
   originals in import lines only (exact line comparison).
 """
@@ -112,6 +112,35 @@ def test_sharded_backend_and_scaling_never_import_jax(tmp_path):
     assert report == {"rc": [0, 0], "same": True, "engines": ["flagship", "blockmax"],
                       "jax": []}
     assert any(line.startswith(g) and "\t1900\t" in line for line in proc.stdout.splitlines())
+
+
+_EXPERIMENTS_PROBE = """
+import json, sys
+import torch
+import barcoder_tpu_torch.ops.colmax_mma, barcoder_tpu_torch.ops.phase1_variants
+from barcoder_tpu_torch.experiments import int8_bench, phase1_ablate, phase1_bench
+torch.cuda.is_available = lambda: False
+refused = []
+for mod in (int8_bench, phase1_ablate, phase1_bench):
+    try:
+        mod.main([])
+    except SystemExit as e:
+        refused.append("needs a CUDA device" in str(e))
+print(json.dumps({"refused": refused, "jax": sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith(("jax.", "jaxlib")))}))
+"""
+
+
+def test_experiments_never_import_jax():
+    """The experiment entry points and their kernel wrappers, in a fresh
+    interpreter: no jax, and each entry point refuses to run without CUDA."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BARCODER_TPU")}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", _EXPERIMENTS_PROBE], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {"refused": [True] * 3,
+                                                                "jax": []}
 
 
 def _without_imports(path: Path) -> list[str]:
