@@ -23,8 +23,8 @@ from rich.console import Console
 from rich.table import Table
 
 from ..pipeline.targets import TargetsResult, run_targets, write_output
-from barcoder_tpu.seqio.library import BarcodeLibrary, BarcodeLibraryError
-from barcoder_tpu.core.genome import Genome
+from ..seqio.library import BarcodeLibrary, BarcodeLibraryError
+from ..core.genome import Genome
 
 
 def build_parser(parser: argparse.ArgumentParser | None = None) -> argparse.ArgumentParser:

@@ -12,7 +12,7 @@
 //
 // The TPU kernel gets the score as a one-hot bf16 matmul Q.G on the MXU. The
 // scores are small integers, so this kernel computes the same numbers exactly
-// with the integer formulation of scan_hits.cu: every spacer row and every
+// with integer bit operations: every spacer row and every
 // genome column is packed into NW = ceil(4L / 32) words of one-hot nibbles
 // (bit 4j + b set iff base j is b; N and the out-of-bounds code 5 set no
 // bit), and score = sum_w popc(q_w & g_w).
@@ -29,7 +29,7 @@
 //     its rows into those two groups, takes the column max of the popcounts
 //     per group and adds each group's bias once per column.
 //
-// What bounds it on the H100: the integer pipes, as for scan_hits (NW
+// What bounds it on the H100: the integer pipes (NW
 // popcounts, NW ANDs, NW - 1 adds and one max per pair; 16 popcounts per clock
 // per SM). The packed G columns and running maxima live in registers; every Q
 // row is one broadcast 16-byte shared-memory load that serves COLS columns.

@@ -1,12 +1,12 @@
 """The real phase-1 kernel at E. coli bench shapes, and ablations of its
 epilogue, on one CUDA card: the port of ``experiments/phase1_bench.py``.
 
-The "real" row times the port's ``scan_hits.scan_block_hits`` (the integer
-popcount kernel of the main path); the rest time the tensor-core kernel of
-``ops/phase1_variants.py`` with G built in the kernel and the epilogue cut
-down: (a) the column maxima, (b) the hit bits, (c) hit counts batched over 8
-spacer blocks, (d) hit counts per block. So popcount and tensor cores stand
-side by side on the same inputs.
+The "real" row times the port's ``scan_hits.scan_block_hits`` (the int8
+``wgmma`` kernel of the main path); the rest time the bf16 ``mma.sync``
+kernel of ``ops/phase1_variants.py`` with G built in the kernel and the
+epilogue cut down: (a) the column maxima, (b) the hit bits, (c) hit counts
+batched over 8 spacer blocks, (d) hit counts per block. So the two
+tensor-core formulations stand side by side on the same inputs.
 
     python -m barcoder_tpu_torch.experiments.phase1_bench
 

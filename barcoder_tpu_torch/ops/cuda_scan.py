@@ -36,9 +36,9 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from barcoder_tpu.core.genome import Contig
+from ..core.genome import Contig
 from .prep import build_scan_array, spacer_matrix
-from .scan_hits import BS, MASK_BIAS, build_g_onehot, scan_block_hits
+from .scan_hits import BS, bias_row, build_g_onehot, scan_block_hits
 from .types import STRAND_F, STRAND_R, Hits
 
 DEFAULT_P = 16384  # genome positions per phase-1 tile
@@ -240,10 +240,6 @@ def _tiles_device_impl(scan_dev: torch.Tensor, *, n_starts: int, P: int, halo: i
     return torch.cat([body, shifted[:, :halo]], dim=1)[:, None, :].contiguous()
 
 
-def _bias_row(ok: torch.Tensor) -> torch.Tensor:
-    return torch.where(ok, 0.0, MASK_BIAS).to(torch.float32)
-
-
 def _compact_pairs(ind: torch.Tensor) -> torch.Tensor:
     """Flat indices (int64) of the nonzero entries of the phase-1 indicator
     over (n_tiles, n_sb_pad8, SUB): the (subtile, spacer-block) pairs that
@@ -261,7 +257,7 @@ def phase1_full(scan_dev, n_real, q_onehot, shift, pat, thresh, *, n_starts, P,
     ok = _pam_ok_device(scan_dev, n_real, shift, pat, n_starts_b=n_starts, L=L,
                         circular=circular)
     n_tiles = _cdiv(n_starts, P)
-    bias = _bias_row(ok).reshape(n_tiles, 1, P)
+    bias = bias_row(ok).reshape(n_tiles, 1, P)
     ind = scan_block_hits(
         thresh, q_onehot, tiles, bias, L=L, K=K, P=P, SUB=SUB, BS_M=BS_M,
         fold_bias=4 * L < K,
@@ -278,7 +274,7 @@ def phase1_fused(scan_dev, n_real, q_all, shift_f, pat_f, shift_r, pat_r, thresh
     tiles = _tiles_device_impl(scan_dev, n_starts=n_starts, P=P, halo=halo)
     n_tiles = _cdiv(n_starts, P)
     biases = [
-        _bias_row(_pam_ok_device(scan_dev, n_real, shift, pat, n_starts_b=n_starts,
+        bias_row(_pam_ok_device(scan_dev, n_real, shift, pat, n_starts_b=n_starts,
                                  L=L, circular=circular))
         for shift, pat in ((shift_f, pat_f), (shift_r, pat_r))
     ]

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
 
-from barcoder_tpu.core.genome import Contig
+from ..core.genome import Contig
 from .prep import build_scan_array, revcomp_matrix, site_masks, spacer_matrix
 from .types import STRAND_F, STRAND_R, Hits
 

@@ -6,8 +6,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from barcoder_tpu.core.genome import Contig
-from barcoder_tpu.core.pam import pam_site_masks
+from ..core.genome import Contig
+from ..core.pam import pam_site_masks
 
 
 def spacer_matrix(spacers: list[str]) -> np.ndarray:
@@ -21,7 +21,7 @@ def spacer_matrix(spacers: list[str]) -> np.ndarray:
     lens = {len(s) for s in spacers}
     if len(lens) != 1:
         raise ValueError(f"spacer_matrix requires uniform length, got {sorted(lens)}")
-    from barcoder_tpu.core.encode import _LUT
+    from ..core.encode import _LUT
 
     arr = np.array(list(spacers), dtype="S")
     mat = arr.view(np.uint8).reshape(len(spacers), -1)
@@ -31,7 +31,7 @@ def spacer_matrix(spacers: list[str]) -> np.ndarray:
 def revcomp_matrix(mat: np.ndarray) -> np.ndarray:
     """(S, L) → (S, L) reverse complement of every row (vectorized — the
     design workload passes ~10^6 rows)."""
-    from barcoder_tpu.core.encode import _COMP
+    from ..core.encode import _COMP
 
     return np.ascontiguousarray(_COMP[np.asarray(mat, dtype=np.int8)][:, ::-1])
 
@@ -73,7 +73,7 @@ def enumerate_sites(
     pallas_scan._SiteScanJob): for an |PAM|-constrained scan every hit lies
     at one of these sites, so the scan contracts the genome axis from
     contig.length to n_sites (~N/8 for NGG) with no gather on device."""
-    from barcoder_tpu.core.encode import _COMP
+    from ..core.encode import _COMP
     from .types import STRAND_F, STRAND_R
 
     scan = build_scan_array(contig, L)

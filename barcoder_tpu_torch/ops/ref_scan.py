@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from barcoder_tpu.core.genome import Contig
+from ..core.genome import Contig
 from .prep import build_scan_array, revcomp_matrix, site_masks, spacer_matrix
 from .types import STRAND_F, STRAND_R, Hits
 

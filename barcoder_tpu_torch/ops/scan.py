@@ -29,7 +29,7 @@ from typing import Literal
 
 import torch
 
-from barcoder_tpu.core.genome import Contig, Genome
+from ..core.genome import Contig, Genome
 from .types import Hits
 
 Backend = Literal["auto", "cuda", "sharded", "torch", "oracle"]

@@ -3,8 +3,9 @@
 
 :func:`scan_block_hits` keeps the JAX wrapper's argument list and output
 layout. A CUDA tensor launches the hand-written kernel in
-``csrc/scan_hits.cu`` (built with ``nvcc`` for sm_90a at first use and
-loaded with ctypes, by ``nvcc.py``); a CPU tensor takes :func:`scan_block_hits_reference`, the
+``csrc/scan_hits.cu`` (an int8 product on the tensor cores with ``wgmma``,
+built with ``nvcc`` for sm_90a at first use and loaded with ctypes, by
+``nvcc.py``); a CPU tensor takes :func:`scan_block_hits_reference`, the
 plain torch version with the same contract. Nothing falls back: a kernel
 that does not build or launch raises.
 
@@ -30,7 +31,7 @@ MASK_BIAS = -16384.0  # added to masked-out positions; far below any score
 # and checks that the main path went through the kernel)
 launches = 0
 
-_MAX_BS_M = 2048  # 16 B of shared memory per packed row: 32 KB at most
+_MAX_K = 128  # the kernel's deepest product: 4 k-steps of 32 int8 values
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -62,6 +63,25 @@ def _onehot_g(windows: torch.Tensor, *, K: int) -> torch.Tensor:
     if 4 * L < K:
         g4l = torch.nn.functional.pad(g4l, (0, 0, 0, K - 4 * L))
     return g4l
+
+
+def bias_row(ok: torch.Tensor) -> torch.Tensor:
+    """The bias of a PAM/site mask: 0 where ``ok``, MASK_BIAS elsewhere, f32.
+    These are the two values the CUDA kernel's folded bias is exact for."""
+    return torch.where(ok, 0.0, MASK_BIAS).to(torch.float32)
+
+
+def int8_g(windows: torch.Tensor, bias: torch.Tensor, *, K_eff: int, fold: bool) -> torch.Tensor:
+    """G as the CUDA kernel builds it, (..., K_eff, P) int8, from (..., L, P)
+    window codes and the (..., R, P) bias: the one-hot rows 4j + b and,
+    folded, rows 4L + i set to -128 where bias row i is nonzero (0
+    elsewhere)."""
+    L = windows.shape[-2]
+    g = _onehot_g(windows, K=K_eff).to(torch.int8)
+    if fold:
+        R = bias.shape[-2]
+        g[..., 4 * L : 4 * L + R, :] = torch.where(bias != 0, -128, 0).to(torch.int8)
+    return g
 
 
 def _check(q_onehot, tiles, bias_tiles, *, L, K, P, SUB, fold_bias, matrix_rows):
@@ -133,7 +153,21 @@ def scan_block_hits(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB=1,
     MASK_BIAS). Returns (n_tiles, n_sb_pad8, SUB) f32 hit-column counts per
     (subtile, spacer block), with the block axis padded to a multiple of 8
     by zero rows. Raises, like the JAX wrapper, on fold without spare rows
-    and on several bias rows without fold."""
+    and on several bias rows without fold.
+
+    The CUDA kernel computes in int8 and meets this contract bit for bit
+    under two conditions, which every caller meets:
+
+    * folded bias: each bias value is 0 or MASK_BIAS (callers build it with
+      :func:`bias_row`), and thresh > -96 (the callers pass L - v >= 1). The
+      kernel folds a nonzero bias in as -128 (:func:`int8_g`),
+      so a masked row scores at most 32 - 128 where the TPU's scores at most
+      32 - 16384; both stay below such a threshold, and unmasked rows score
+      the same;
+    * additive bias (no fold): any f32 value; it is added to the int32
+      column max, and max_r(s_r + b) = max_r(s_r) + b.
+
+    It takes at most 2 bias rows and 4L + the folded rows <= 128."""
     if q_onehot.device.type == "cpu":
         return scan_block_hits_reference(
             thresh, q_onehot, tiles, bias_tiles, L=L, K=K, P=P, SUB=SUB,
@@ -143,6 +177,32 @@ def scan_block_hits(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB=1,
         raise ValueError(f"scan_block_hits runs on cpu or cuda, not {q_onehot.device}")
     return _launch(thresh, q_onehot, tiles, bias_tiles, L=L, K=K, P=P, SUB=SUB,
                    BS_M=BS_M, fold_bias=fold_bias, matrix_rows=matrix_rows)
+
+
+def k_eff(L: int, bias_rows: int, fold_bias: bool) -> int:
+    """The kernel's contraction depth: the 4L one-hot rows plus the folded
+    bias rows, rounded up to the 32 int8 values of one tensor-core k-step
+    (96 for L = 20 with two folded rows, 128 for L = 24 and L = 32)."""
+    return _cdiv(4 * L + (bias_rows if fold_bias else 0), 32) * 32
+
+
+def q_chunks(q_onehot: torch.Tensor, n_sblocks: int, BS_M: int, K_eff: int) -> torch.Tensor:
+    """Q as the kernel reads it: the first n_sblocks * BS_M one-hot rows cut
+    (or zero-padded) to K_eff int8 columns (columns past K_eff meet zero G
+    rows, on the TPU too, so they never change a score); each spacer block
+    padded to a multiple of 64 rows by repeating its last row (a repeated
+    row leaves the block's column max as it is); every 64-row chunk laid out
+    as (K_eff / 16, 8, 8, 16), the 8-row x 16-byte core matrices of wgmma's
+    K-major operand: core matrix (row group g, K piece c) at byte
+    c * 1024 + g * 128 of its chunk."""
+    q8 = q_onehot[: n_sblocks * BS_M, :K_eff].to(torch.int8)
+    if q8.shape[1] < K_eff:
+        q8 = torch.nn.functional.pad(q8, (0, K_eff - q8.shape[1]))
+    q = q8.reshape(n_sblocks, BS_M, K_eff)
+    bs64 = _cdiv(BS_M, 64) * 64
+    if bs64 != BS_M:
+        q = torch.cat([q, q[:, -1:].expand(n_sblocks, bs64 - BS_M, K_eff)], dim=1)
+    return q.reshape(-1, 8, 8, K_eff // 16, 16).permute(0, 3, 1, 2, 4).contiguous()
 
 
 def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,
@@ -161,17 +221,19 @@ def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,
                 f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
             )
     bias_rows = bias_tiles.shape[1]
-    if L > 32 or bias_rows > 2 or BS_M > _MAX_BS_M:
+    K_eff = k_eff(L, bias_rows, fold_bias)
+    if bias_rows > 2 or K_eff > _MAX_K:
         raise ValueError(
-            f"the CUDA kernel takes L <= 32, at most 2 bias rows and BS_M <= "
-            f"{_MAX_BS_M}; got L={L}, {bias_rows} rows, BS_M={BS_M}"
+            f"the CUDA kernel takes at most 2 bias rows and 4L + folded rows <= {_MAX_K}; "
+            f"got L={L}, {bias_rows} bias rows, fold_bias={fold_bias}"
         )
     n_sblocks = q_onehot.shape[0] // BS_M
-    if n_sblocks > 65535:
-        raise ValueError(f"{n_sblocks} spacer blocks exceed the grid's y limit")
     n_sb_pad8 = _cdiv(n_sblocks, 8) * 8
     n_tiles = tiles.shape[0]
     out = torch.zeros((n_tiles, n_sb_pad8, SUB), dtype=torch.float32, device=dev)
+    if n_tiles == 0 or n_sblocks == 0:
+        return out
+    qc = q_chunks(q_onehot, n_sblocks, BS_M, K_eff)
     tile_stride = tiles.shape[1] * tiles.shape[2]
     code_stride = P if matrix_rows else 1
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -180,9 +242,9 @@ def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
-            thresh.data_ptr(), q_onehot.data_ptr(), tiles.data_ptr(),
+            thresh.data_ptr(), qc.data_ptr(), tiles.data_ptr(),
             bias_tiles.data_ptr(), out.data_ptr(), n_tiles, n_sblocks,
-            n_sb_pad8, K, L, P, SUB, BS_M, tile_stride, code_stride,
+            n_sb_pad8, K_eff // 32, L, P, SUB, BS_M, tile_stride, code_stride,
             bias_rows, int(bool(fold_bias)), stream,
         )
     if rc != 0:

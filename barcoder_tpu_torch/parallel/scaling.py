@@ -38,8 +38,8 @@ from .mesh import default_tile, local_devices, make_mesh
 
 
 def _make_workload(n_bp: int, n_spacers: int, L: int):
-    from barcoder_tpu.core.encode import decode, encode
-    from barcoder_tpu.core.genome import Contig
+    from ..core.encode import decode, encode
+    from ..core.genome import Contig
 
     rng = np.random.default_rng(0)
     seq = decode(rng.integers(0, 4, size=n_bp).astype(np.int8))

@@ -45,13 +45,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from barcoder_tpu.core.genome import Contig
+from ..core.genome import Contig
 from ..ops.cuda_scan import (
     _compact_pairs, _content_digest, _score_pairs, _split_pairs,
     _tiles_device_impl, onehot_rows,
 )
 from ..ops.prep import build_scan_array, revcomp_matrix, site_masks, spacer_matrix
-from ..ops.scan_hits import BS, MASK_BIAS, _cdiv, scan_block_hits
+from ..ops.scan_hits import BS, MASK_BIAS, _cdiv, bias_row, scan_block_hits
 from ..ops.scan_max import scan_block_max
 from ..ops.types import STRAND_F, STRAND_R, Hits
 from .mesh import GENOME_AXIS, LIBRARY_AXIS, Mesh, make_mesh
@@ -400,7 +400,7 @@ def _phase1(codes, ok, q, thresh, g: _Geom):
     """One shard's phase 1: its tiles and bias built on its device, then the
     hit-indicator kernel (plain torch on the CPU)."""
     tiles = _tiles_device_impl(codes, n_starts=g.B, P=g.P, halo=g.halo)
-    bias = torch.where(ok > 0, 0.0, MASK_BIAS).to(torch.float32)
+    bias = bias_row(ok > 0)
     bias = bias.reshape(g.R, g.B // g.P, g.P).transpose(0, 1).contiguous()
     return scan_block_hits(thresh, q, tiles, bias, L=g.L, K=g.K, P=g.P, SUB=g.SUB,
                            BS_M=g.BS_M, fold_bias=g.fold)

@@ -30,14 +30,14 @@ import numpy as np
 import pandas as pd
 from numpy.lib.stride_tricks import sliding_window_view
 
-from barcoder_tpu.core.coords import fold_hit_coords_vec, get_coords, get_diff
-from barcoder_tpu.core.encode import COMP_ASCII, DECODE_ASCII
-from barcoder_tpu.core.genome import Contig, Genome
-from barcoder_tpu.core.pam import pam_is_trivial, pam_window_start
+from ..core.coords import fold_hit_coords_vec, get_coords, get_diff
+from ..core.encode import COMP_ASCII, DECODE_ASCII
+from ..core.genome import Contig, Genome
+from ..core.pam import pam_is_trivial, pam_window_start
 from ..ops.prep import build_scan_array, revcomp_matrix, spacer_matrix
 from ..ops.scan import scan_contigs
 from ..ops.types import STRAND_R, Hits
-from barcoder_tpu.seqio.library import BarcodeLibrary
+from ..seqio.library import BarcodeLibrary
 
 
 @dataclass
@@ -398,7 +398,7 @@ def run_targets(
     for apples-to-apples diffs against real Bowtie output. Kept sites are
     the best N by (mismatches, contig order, pos, strand) — deterministic,
     unlike Bowtie's index-order tie-breaking without --best."""
-    from barcoder_tpu.utils.profiling import Phases
+    from ..utils.profiling import Phases
 
     phases = phases if phases is not None else Phases()
     # unique sequences per length; names expand after annotation. Libraries

@@ -8,10 +8,15 @@ Phases (any failure is a non-zero exit; nothing is caught):
 
 1. build every CUDA kernel from ``barcoder_tpu_torch/csrc/`` with nvcc for
    sm_90a, one nvcc process per source, started together;
-2. hold the phase-1 hit kernel (``scan_hits``) against its plain torch
-   version on the card, bit-equal, at the main path's shapes (P = 16384,
-   SUB = 32, BS_M = 512, K = 128, 8 tiles; L = 20 with 2 folded bias rows,
-   L = 32 additive, L = 20 with 1 folded row), and time both;
+2. hold the phase-1 hit kernel (``scan_hits``, int8 ``wgmma``) against its
+   plain torch version on the card, bit-equal, at the main path's shapes
+   (P = 16384, SUB = 32, BS_M = 512, K = 128, 8 tiles; L = 20 with 2 folded
+   bias rows, L = 32 additive, L = 20 with 1 folded row), and time both;
+   then at the 20-nt request's full shape (288 tiles, 20,480 rows, L = 20,
+   2 folded rows): bit-equal to the plain version, timed beside it, beside
+   its bound and beside ``torch._int_mm`` + ``amax`` of the same int8
+   product (a yardstick the port never calls; its hit counts must agree),
+   with the kernel's registers (ptxas; it may not spill);
 2b. the same for the block-max kernel (``scan_max``) at the scaling
    harness's shapes (P = 16384, K = 128, 8 tiles, 80 spacer blocks with
    zero padding rows, the last tile fully masked; L = 20 additive SUB = 1,
@@ -21,8 +26,10 @@ Phases (any failure is a non-zero exit; nothing is caught):
    a 9,984-spacer 20-nt library plus planted guides (NGG, v = 3), the same
    again (steady state), and a 32-nt library (NGNC, v = 1). Every planted
    guide must come back at 0 mismatches, the kernel must have launched, and
-   request 1's Hits must equal the plain ``torch_scan`` on the card; then
-   the CLI answers once in a subprocess.
+   request 1's Hits must equal the plain ``torch_scan`` on the card; each
+   20-nt request launches the kernel once (both strands in one launch), the
+   32-nt request twice (one per strand); then the CLI answers once in a
+   subprocess.
 5. the sharded path: request 1 through ``run_targets(backend="sharded")``
    (the frame must equal the cuda backend's), then ``sharded_scan`` over
    request 1's library and genome on a 1-shard mesh and on a 4-shard mesh
@@ -44,14 +51,19 @@ Phases (any failure is a non-zero exit; nothing is caught):
    rows x 16,384 columns), every phase-1 ablation (A-D) and epilogue (a-d)
    variant (320 tiles x 40 blocks x 512 rows x 16,384 columns), each held
    bit-equal against its plain version and timed beside it, with its
-   registers (ptxas; no kernel may spill) and the popcount ``scan_hits``
-   kernel's time on the same inputs; then each entry point
+   registers (ptxas; no kernel may spill) and the ``scan_hits`` kernel's
+   time on the same inputs; then each entry point
    (``python -m barcoder_tpu_torch.experiments.<name>``) once in this
    process, with the launch counts at 0 before each: each must launch its
    kernel.
 
 The kernels line gives each kernel's launches per path (``launches_by_path``,
-each path's count taken from 0 just before it) and their sum.
+each path's count taken from 0 just before it) and their sum, its time, its
+plain version's time, its bound (the larger of its operations over the
+card's tensor rate for their type and its bytes over the memory rate) and,
+where one PyTorch call computes the same function, that call's time. The
+tensor rates are the card's own (``peaks`` in the line): its SM count x
+the type's dense operations per SM per clock x its highest SM clock.
 
 With ``--profile DIR``, a fourth phase times three steady-state runs of
 the 20-nt and the 32-nt request, then runs each once under
@@ -97,7 +109,59 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# --- bounds ------------------------------------------------------------------
+
+# Dense tensor-core operations per SM per clock on Hopper (sm_90). NVIDIA's
+# data-sheet peaks for the H100 SXM (1,979 TOP/s int8, 989 TFLOP/s bf16) are
+# these at 132 SMs and 1,830 MHz; the card runs its SMs up to 1,980 MHz, so
+# the bounds take the card's own SM count and highest SM clock instead.
+OPS_PER_SM_CLOCK = {"int8": 8192, "bf16": 4096}
+PEAK_BYTES_PER_S = 3.35e12  # HBM3 of the H100 SXM (data sheet)
+PEAKS: dict = {}  # filled by card_peaks() before any bound is taken
+
+
+def card_peaks() -> dict:
+    """The card's tensor rates: SMs x operations per SM per clock x the
+    highest SM clock that nvidia-smi reports (``clocks.max.sm``)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return dict(sm_clock_max_mhz=mhz, sms=sms, bytes_per_s=PEAK_BYTES_PER_S,
+                **{f"{k}_ops_per_s": sms * n * mhz * 1e6 for k, n in OPS_PER_SM_CLOCK.items()})
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops: float, kind: str, n_bytes: int) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the card's tensor rate for their type (``PEAKS``) and the bytes
+    (each input read once, each output written once) over the memory rate."""
+    ops_ms = ops / PEAKS[f"{kind}_ops_per_s"] * 1e3
+    bytes_ms = n_bytes / PEAKS["bytes_per_s"] * 1e3
+    return dict(bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ops=ops, bytes=n_bytes)
+
+
 # --- phase 2 -----------------------------------------------------------------
+
+def enqueue_ms(fn, reps: int = 5) -> float:
+    """Mean host milliseconds a call of ``fn`` takes to enqueue its work
+    (after a warm-up, no synchronization between calls). Where it is not
+    below ``cuda_ms``'s time, that time is the host's, not the card's."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
 
 def kernel_case(rng, *, L, fold_rows, S_pad, n_tiles=8, P=16384, SUB=32, BS_M=512, K=128):
     """Inputs at the main path's shapes: genome codes with N (4) and the
@@ -152,14 +216,77 @@ def phase2_kernel_vs_plain() -> dict:
         err = float((got - want).abs().max())
         plain_ms = cuda_ms(lambda: scan_hits.scan_block_hits_reference(*args, **kw))
         ms = cuda_ms(lambda: scan_hits.scan_block_hits(*args, **kw))
+        host_ms = enqueue_ms(lambda: scan_hits.scan_block_hits(*args, **kw))
         pairs = args[1].shape[0] // kw["BS_M"] * kw["BS_M"] * args[2].shape[0] * kw["P"]
+        k_eff = scan_hits.k_eff(kw["L"], args[3].shape[1], kw["fold_bias"])
         results[name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, hit_columns=float(want.sum()),
+            max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+            hit_columns=float(want.sum()),
             pairs_per_s=pairs / (ms / 1e3), shape=dict(spec, n_tiles=args[2].shape[0]),
+            **bound(2 * k_eff * pairs, "int8", nbytes(*args, got)),
         )
         log(f"phase 2 {name}: bit-equal, max_abs_err {err}, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, {pairs / (ms / 1e3):.4e} pairs/s")
+            f"plain {plain_ms:.4f} ms, {pairs / (ms / 1e3):.4e} pairs/s, host enqueue "
+            f"{host_ms:.4f} ms a call")
     return results
+
+
+def phase2_request_shape() -> dict:
+    """The kernel at the 20-nt request's full shape: 288 tiles of 16,384
+    columns, 20,480 rows (both strands, 40 blocks of 512), L = 20 with 2
+    folded rows, SUB = 32."""
+    from barcoder_tpu_torch.ops import nvcc, scan_hits
+
+    report = nvcc.ptxas_report("scan_hits")
+    for r in report:
+        log(f"phase 2 ptxas scan_hits: {r}")
+        if r["spill_stores"] or r["spill_loads"]:
+            raise AssertionError(f"{r['function']} spills registers")
+    rng = np.random.default_rng(SEED + 3)
+    args, kw = kernel_case(rng, L=20, fold_rows=2, S_pad=20480, n_tiles=288)
+    th, q, tiles, bias = args
+    got = scan_hits.scan_block_hits(*args, **kw)
+    want = scan_hits.scan_block_hits_reference(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"request shape: kernel disagrees with its plain version "
+                             f"({int((got != want).sum())} entries)")
+    err = float((got - want).abs().max())
+    del want
+    ms = cuda_ms(lambda: scan_hits.scan_block_hits(*args, **kw))
+    plain_ms = cuda_ms(lambda: scan_hits.scan_block_hits_reference(*args, **kw), reps=2)
+
+    # the yardstick: the same int8 product and column max through torch._int_mm
+    L, P, BS_M, SUB = kw["L"], kw["P"], kw["BS_M"], kw["SUB"]
+    k_eff = scan_hits.k_eff(L, bias.shape[1], True)
+    n_sb = q.shape[0] // BS_M
+    q8 = q[:, :k_eff].to(torch.int8).contiguous()
+    g8 = scan_hits.int8_g(tiles[:, 0].unfold(-1, P, 1)[:, :L], bias, K_eff=k_eff,
+                          fold=True)
+
+    def library():
+        return [torch._int_mm(q8, g8[t]).view(n_sb, BS_M, P).amax(dim=1)
+                for t in range(g8.shape[0])]
+
+    colmax = torch.stack(library())
+    counts = (colmax >= th[0]).reshape(-1, n_sb, SUB, P // SUB).sum(dim=3)
+    if not torch.equal(counts.to(torch.float32), got[:, :n_sb]):
+        raise AssertionError("torch._int_mm + amax disagrees with the kernel's counts")
+    del colmax, counts
+    library_ms = cuda_ms(library, reps=2)
+    pairs = n_sb * BS_M * tiles.shape[0] * P
+    b = bound(2 * k_eff * pairs, "int8", nbytes(*args, got))
+    regs = max(r["registers"] for r in report)
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               pairs_per_s=pairs / (ms / 1e3), bound_share=b["bound_ms"] / ms,
+               hit_columns=float(got.sum()), registers=regs, k_eff=k_eff,
+               shape=dict(n_tiles=tiles.shape[0], rows=q.shape[0], L=L, P=P, SUB=SUB,
+                          BS_M=BS_M, fold_rows=2), **b)
+    log(f"phase 2 request shape: bit-equal, max_abs_err {err}, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch._int_mm + amax {library_ms:.4f} ms, bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']}), share {b['bound_ms'] / ms:.4f}, "
+        f"{pairs / (ms / 1e3):.4e} pairs/s, {regs} registers, no spills")
+    return out
 
 
 # --- phase 2b ----------------------------------------------------------------
@@ -194,7 +321,7 @@ def max_kernel_case(rng, *, L, fold, SUB, S_pad=10_240, n_pad=240, n_tiles=8, P=
 
 
 def phase2b_max_kernel_vs_plain() -> dict:
-    from barcoder_tpu_torch.ops import scan_max
+    from barcoder_tpu_torch.ops import scan_hits, scan_max
 
     rng = np.random.default_rng(SEED + 2)
     cases = [
@@ -215,9 +342,11 @@ def phase2b_max_kernel_vs_plain() -> dict:
         plain_ms = cuda_ms(lambda: scan_max.scan_block_max_reference(*args, **kw))
         ms = cuda_ms(lambda: scan_max.scan_block_max(*args, **kw))
         pairs = args[0].shape[0] // 128 * 128 * args[1].shape[0] * kw["P"]
+        k_eff = scan_hits.k_eff(kw["L"], 1, kw["fold_bias"])  # its product's depth in int8
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              pairs_per_s=pairs / (ms / 1e3), shape=dict(spec, n_tiles=8,
-                                                                       S_pad=args[0].shape[0]))
+                                                                       S_pad=args[0].shape[0]),
+                             **bound(2 * k_eff * pairs, "int8", nbytes(*args, got)))
         log(f"phase 2b {name}: bit-equal, max_abs_err {err}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, {pairs / (ms / 1e3):.4e} pairs/s")
     return results
@@ -261,15 +390,41 @@ def strided_windows(seq: str, n: int, L: int, count: int) -> list[str]:
     return out
 
 
+def random_seq(n: int, rng) -> str:
+    from barcoder_tpu_torch.core.encode import decode
+
+    return decode(rng.integers(0, 4, size=n).astype(np.int8))
+
+
+def make_record(n: int, n_genes: int, seed: int, rec_id: str):
+    """tests/genomes.py::make_record(wrapped_gene=True) on the port's own
+    GenBank types: a random circular sequence, n_genes evenly spaced genes
+    on alternating strands, and one gene across the origin."""
+    from barcoder_tpu_torch.seqio.genbank import (
+        CompoundLocation, Feature, GenBankRecord, Location,
+    )
+
+    rng = np.random.default_rng(seed)
+    rec = GenBankRecord(id=rec_id, name=rec_id.split(".")[0],
+                        description="synthetic circular test genome", seq=random_seq(n, rng),
+                        topology="circular", organism="Testus syntheticus")
+    gene_len = max(60, n // (n_genes * 2))
+    for i in range(n_genes):
+        start = (i * n) // n_genes
+        loc = Location(start, min(start + gene_len, n), 1 if i % 2 == 0 else -1)
+        rec.features.append(Feature("gene", loc, {"locus_tag": [f"TST_{i:04d}"],
+                                                  "gene": [f"gen{i}"] if i % 3 == 0 else []}))
+    loc = CompoundLocation([Location(n - 120, n, 1), Location(0, 80, 1)])
+    rec.features.append(Feature("gene", loc, {"locus_tag": ["TST_WRAP"], "gene": ["wrp"]}))
+    return rec
+
+
 def build_inputs():
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from barcoder_tpu.core.genome import Genome, contig_from_record
-    from barcoder_tpu.seqio.library import BarcodeLibrary
-    from tests.genomes import make_record, random_seq
+    from barcoder_tpu_torch.core.genome import Genome, contig_from_record
+    from barcoder_tpu_torch.seqio.library import BarcodeLibrary
 
     t0 = time.perf_counter()
-    rec = make_record(n=N_GENOME, n_genes=N_GENES, wrapped_gene=True, seed=SEED,
-                      rec_id="SMOKE0.1")
+    rec = make_record(n=N_GENOME, n_genes=N_GENES, seed=SEED, rec_id="SMOKE0.1")
     rng = np.random.default_rng(SEED + 1)
     # planted sites spaced 2 kb apart, away from each other's windows; one
     # 20-mer wraps the origin
@@ -317,12 +472,14 @@ def phase3_main_path(rec, genome, libs, plants) -> dict:
         ("request3_L32_NGNC_v1", libs[32], "NGNC", 1, plants[32]),
     ]
     out = {}
-    scan_hits.launches = 0
+    per_request = {}
     for name, lib, pam, v, planted in requests:
+        scan_hits.launches = 0
         t0 = time.perf_counter()
         result = run_targets(lib, genome, pam, v, backend="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        per_request[name] = scan_hits.launches
         check_planted(result, planted, genome.contigs[0].length)
         table = result.table
         if len(table) == 0 or "spacer" not in table.columns:
@@ -335,11 +492,14 @@ def phase3_main_path(rec, genome, libs, plants) -> dict:
                          phases_s=prof["timings_s"])
         log(f"phase 3 {name}: {wall:.4f} s, {len(table)} rows, "
             f"{prof['counters']['hits']} hits, phases {prof['timings_s']}")
-    launches = scan_hits.launches
-    if launches == 0:
-        raise AssertionError("the main path never launched the scan_hits kernel")
-    log(f"phase 3: scan_hits kernel launched {launches} times")
+    # both strands of a 20-nt library in one launch; one launch per strand at 32 nt
+    expect = {name: 2 if "L32" in name else 1 for name, *_ in requests}
+    if per_request != expect:
+        raise AssertionError(f"scan_hits launches per request {per_request}, expected {expect}")
+    launches = sum(per_request.values())
+    log(f"phase 3: scan_hits kernel launched {launches} times: {per_request}")
     out["launches"] = launches
+    out["launches_per_request"] = per_request
     return out
 
 
@@ -367,7 +527,7 @@ def phase3_hits_vs_plain(genome, libs) -> dict:
 
 def phase3_cli(rec) -> None:
     """The CLI (auto backend) in a subprocess on a 200 kb slice."""
-    from barcoder_tpu.seqio.genbank import GenBankRecord, write_genbank
+    from barcoder_tpu_torch.seqio.genbank import GenBankRecord, write_genbank
 
     seq = rec.seq[:200_000]
     pos = seq.index("GG", 1021) - 21  # a forward NGG site
@@ -583,15 +743,31 @@ def _kernel_vs_plain(name: str, fn, plain, pairs: int, registers, **extra) -> di
     rate = pairs / (ms / 1e3)
     log(f"phase 6 {name}: bit-equal, max_abs_err {err}, kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, {rate:.4e} pairs/s, {registers} registers"
-        + "".join(f", {k} {v:.4f}" for k, v in extra.items()))
+        + "".join(f", {k} {v:.4f}" if isinstance(v, float) else f", {k} {v}"
+                  for k, v in extra.items()))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, pairs_per_s=rate,
                 registers=registers, **extra)
+
+
+def library_colmax_ms(q, g, BS_M: int, want) -> float:
+    """The column max through one PyTorch product per tile (``torch._int_mm``
+    in int8, ``torch.matmul`` in bf16, whose 0/1 sums are exact) and
+    ``amax``: checked equal to the kernel's ``want``, then timed."""
+    n_sb, P = q.shape[0] // BS_M, g.shape[2]
+
+    def library():
+        mm = torch._int_mm if q.dtype == torch.int8 else torch.matmul
+        return [mm(q, g[t]).view(n_sb, BS_M, P).amax(dim=1) for t in range(g.shape[0])]
+
+    if not torch.equal(torch.stack(library()).to(want.dtype), want):
+        raise AssertionError(f"the {q.dtype} library column max disagrees with the kernel")
+    return cuda_ms(library, reps=2)
 
 
 def phase6_experiment_kernels() -> dict:
     """The three experiment kernels at their scripts' full shapes, every
     variant held bit-equal against its plain version and timed beside it;
-    for the phase-1 variants also beside the popcount scan_hits kernel on
+    for the phase-1 variants also beside the scan_hits kernel on
     the same inputs (the scripts' random inputs with planted hits and 30%
     masked columns, so the epilogues count something)."""
     from barcoder_tpu_torch.experiments import (
@@ -615,10 +791,13 @@ def phase6_experiment_kernels() -> dict:
     for mode, dtype in m.DTYPES.items():
         q, g = int8_tensors(q8, g8, dtype, dev)
         od = colmax_mma.OUT_DTYPE[dtype]
+        out_bytes = m.N_TILES * m.N_SB * m.P * torch.empty((), dtype=od).element_size()
         out["colmax_mma"][mode] = _kernel_vs_plain(
             f"colmax_mma {mode}", lambda: colmax_mma.colmax(q, g, od, BS_M=m.BS_M),
             lambda: colmax_mma.colmax_reference(q, g, od, BS_M=m.BS_M), pairs,
-            _registers(report["colmax_mma"], "S8" if mode == "int8" else "Bf16"))
+            _registers(report["colmax_mma"], "S8" if mode == "int8" else "Bf16"),
+            library_ms=library_colmax_ms(q, g, m.BS_M, colmax_mma.colmax(q, g, od, BS_M=m.BS_M)),
+            **bound(2 * m.K * pairs, mode, nbytes(q, g) + out_bytes))
     del q, g
 
     a = phase1_ablate
@@ -628,13 +807,18 @@ def phase6_experiment_kernels() -> dict:
     th, q, tiles, bias = phase1_tensors(thresh, q, tiles, bias, dev)
     kw = dict(L=a.L, K=a.K, P=a.P, SUB=a.SUB, BS_M=a.BS_M)
     pairs = a.N_TILES * a.N_SB * a.BS_M * a.P
-    popcount = scan_hits.scan_block_hits(th, q, tiles, bias, fold_bias=True, **kw)
-    popcount_ms = cuda_ms(lambda: scan_hits.scan_block_hits(th, q, tiles, bias, fold_bias=True,
-                                                            **kw))
-    log(f"phase 6 scan_hits (popcount) at the same shapes: {popcount_ms:.4f} ms, "
-        f"{pairs / (popcount_ms / 1e3):.4e} pairs/s, {int(popcount.sum())} hit columns")
-    if popcount.sum() == 0:
+    hits = scan_hits.scan_block_hits(th, q, tiles, bias, fold_bias=True, **kw)
+    hits_ms = cuda_ms(lambda: scan_hits.scan_block_hits(th, q, tiles, bias, fold_bias=True,
+                                                        **kw))
+    hits_bound = bound(2 * scan_hits.k_eff(a.L, 2, True) * pairs, "int8",
+                       nbytes(th, q, tiles, bias, hits))
+    log(f"phase 6 scan_hits (int8 wgmma) at the same shapes: {hits_ms:.4f} ms, "
+        f"{pairs / (hits_ms / 1e3):.4e} pairs/s, {int(hits.sum())} hit columns, bound "
+        f"{hits_bound['bound_ms']:.4f} ms ({hits_bound['bound_by']}), share "
+        f"{hits_bound['bound_ms'] / hits_ms:.4f}")
+    if hits.sum() == 0:
         raise AssertionError("phase 6 inputs give no hits")
+    phase1_bound = bound(2 * a.K * pairs, "bf16", nbytes(th, q, tiles, bias, hits))
     g_all = phase1_variants.build_g_all(tiles, bias, L=a.L, K=a.K, P=a.P)
     for v, (source, epi) in phase1_variants.ABLATE.items():
         out["phase1_ablate"][v] = _kernel_vs_plain(
@@ -644,10 +828,10 @@ def phase6_experiment_kernels() -> dict:
             pairs, _registers(report["phase1_mma"], "phase1_mma_kernel<"
                               f"{str(source == 'streamed').lower()}, "
                               f"{phase1_variants.EPILOGUE[epi]}>"),
-            popcount_ms=popcount_ms)
-    if not torch.equal(phase1_variants.ablate("A", th, q, tiles, bias, g_all, **kw), popcount):
-        raise AssertionError("phase1_ablate A disagrees with the popcount scan_hits kernel")
-    del g_all, popcount
+            scan_hits_ms=hits_ms, **phase1_bound)
+    if not torch.equal(phase1_variants.ablate("A", th, q, tiles, bias, g_all, **kw), hits):
+        raise AssertionError("phase1_ablate A disagrees with the scan_hits kernel")
+    del g_all, hits
     for v, epi in phase1_variants.BENCH.items():
         out["phase1_epilogue"][v] = _kernel_vs_plain(
             f"phase1_epilogue {v} ({epi})",
@@ -655,8 +839,8 @@ def phase6_experiment_kernels() -> dict:
             lambda v=v: phase1_variants.bench_full_reference(v, th, q, tiles, bias, **kw),
             pairs, _registers(report["phase1_mma"],
                               f"phase1_mma_kernel<false, {phase1_variants.EPILOGUE[epi]}>"),
-            popcount_ms=popcount_ms)
-    out["scan_hits_popcount_ms"] = popcount_ms
+            scan_hits_ms=hits_ms, **phase1_bound)
+    out["scan_hits_ms"] = hits_ms
     return out
 
 
@@ -830,6 +1014,8 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
+    PEAKS.update(card_peaks())
+    log(f"bounds at: {json.dumps(PEAKS)}")
 
     t0 = time.perf_counter()
     libs_built = nvcc.build_libraries()
@@ -840,6 +1026,7 @@ def main(argv=None) -> int:
     log(f"phase 1: built {len(libs_built)} kernels in {build_s:.2f} s")
 
     k = phase2_kernel_vs_plain()
+    k_req = phase2_request_shape()
     k2b = phase2b_max_kernel_vs_plain()
     rec, genome, libs, plants = build_inputs()
     main_path = phase3_main_path(rec, genome, libs, plants)
@@ -853,7 +1040,8 @@ def main(argv=None) -> int:
         prof = {"targets": phase4_profile(genome, libs, args.profile),
                 "sharded": phase4_profile_sharded(args.profile)}
 
-    log(json.dumps({"build_s": build_s, "phase2": k, "phase2b": k2b, "phase3": main_path,
+    log(json.dumps({"build_s": build_s, "phase2": k, "phase2_request_shape": k_req,
+                    "phase2b": k2b, "phase3": main_path,
                     "hits_vs_plain": vs_plain, "phase5": sharded, "phase6": experiments,
                     "phase6_entry_points": entry_points, "profile": prof}))
     # launches per path, each path's counts taken from 0 just before it
@@ -874,9 +1062,11 @@ def main(argv=None) -> int:
         row = {"name": name, "route": "cuda", "source": f"barcoder_tpu_torch/csrc/{source}",
                "replaces": replaces, "launches": sum(by_path[name].values()),
                "launches_by_path": by_path[name], "max_abs_err": err, "ms": head["ms"],
-               "plain_ms": head["plain_ms"]}
+               "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+               "bound_by": head["bound_by"], "library_ms": head.get("library_ms")}
         if variants:
-            row["variants"] = {v: {"ms": r["ms"], "plain_ms": r["plain_ms"]}
+            row["variants"] = {v: {key: r.get(key) for key in
+                                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                                for v, r in variants.items()}
         return row
 
@@ -884,8 +1074,8 @@ def main(argv=None) -> int:
         return max(c["max_abs_err"] for c in cases.values())
 
     log(json.dumps({"kernels": [
-        kernel("scan_hits", "scan_hits.cu", "barcoder_tpu/ops/pallas_scan.py:124", worst(k),
-               k["L20_fold2"]),
+        kernel("scan_hits", "scan_hits.cu", "barcoder_tpu/ops/pallas_scan.py:124",
+               max(worst(k), k_req["max_abs_err"]), k_req, k),
         kernel("scan_max", "scan_max.cu", "barcoder_tpu/ops/pallas_scan.py:77",
                max(worst(k2b), sharded["block_max_err"],
                    sharded["harness_block_max"]["max_abs_err"]), k2b["L20_additive_SUB1"]),
@@ -898,7 +1088,7 @@ def main(argv=None) -> int:
         kernel("phase1_epilogue", "phase1_mma.cu", "experiments/phase1_bench.py:48",
                worst(experiments["phase1_epilogue"]), experiments["phase1_epilogue"]["d"],
                experiments["phase1_epilogue"]),
-    ]}))
+    ], "peaks": PEAKS}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

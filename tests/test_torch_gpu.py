@@ -53,7 +53,7 @@ MODES = [
 ]
 
 
-def make_case(L, mode, matrix_rows, seed):
+def make_case(L, mode, matrix_rows, seed, *, P=P, S_PAD=S_PAD, N_TILES=N_TILES):
     """numpy inputs for one kernel call: genome codes with N (4) and the
     out-of-bounds sentinel (5), spacers cut from the genome with 0-4
     substitutions (so scores cross the threshold), mixed bias-column
@@ -168,6 +168,30 @@ def test_cuda_kernel_matches_plain(cuda, mode, L, matrix_rows):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("matrix_rows", [False, True])
+@pytest.mark.parametrize("mode,L", MODES)
+def test_cuda_kernel_shapes_match_plain(cuda, mode, L, matrix_rows):
+    """The int8 kernel against its plain version, bit-equal, at spacer
+    blocks of 128, 256 and 512 rows and of 80 (padded to 128 by repeating a
+    row), at a ragged P = 400 (the last 512-column block is 400 wide) and at
+    P = 1024, with 1, 4 and 16 or 32 subtiles."""
+    for BS_M, P_case, S_pad in ((128, 400, 400), (256, 1024, 800), (512, 400, 1100),
+                                (80, 1024, 260)):
+        thresh, q, tiles, bias = make_case(L, mode, matrix_rows, seed=BS_M + L, P=P_case,
+                                           S_PAD=S_pad, N_TILES=3)
+        args = (torch.from_numpy(thresh).to(cuda), torch.from_numpy(q).to(cuda, torch.bfloat16),
+                torch.from_numpy(tiles).to(cuda), torch.from_numpy(bias).to(cuda))
+        for SUB in (1, 4, 16 if P_case == 400 else 32):
+            kw = dict(L=L, K=K, P=P_case, SUB=SUB, BS_M=BS_M, fold_bias=mode != "additive",
+                      matrix_rows=matrix_rows)
+            got = scan_hits.scan_block_hits(*args, **kw)
+            want = scan_hits.scan_block_hits_reference(*args, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (BS_M, P_case, SUB)
+            assert want.sum() > 0
+
+
+@pytest.mark.gpu
 def test_cuda_kernel_rejects_bad_inputs(cuda):
     """The wrapper checks type, contiguity and the kernel's limits and
     raises instead of launching."""
@@ -183,8 +207,9 @@ def test_cuda_kernel_rejects_bad_inputs(cuda):
     bad[2] = args[2].cpu()
     with pytest.raises(ValueError, match="tiles"):
         scan_hits.scan_block_hits(*bad, **kw)
-    with pytest.raises(ValueError, match="BS_M"):
-        scan_hits.scan_block_hits(*args, **dict(kw, BS_M=4096))
+    three_rows = torch.cat([args[3]] * 3, dim=1)  # the kernel folds at most 2 bias rows
+    with pytest.raises(ValueError, match="at most 2 bias rows"):
+        scan_hits.scan_block_hits(*args[:3], three_rows, **kw)
 
 
 @pytest.mark.gpu

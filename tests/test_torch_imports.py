@@ -2,13 +2,19 @@
 
 * Importing ``barcoder_tpu_torch`` and running its ``targets`` CLI (also
   with the ``sharded`` backend), its scaling harness and its experiment
-  entry points leaves ``jax`` out of ``sys.modules`` (checked in a fresh
-  interpreter, since this test process has imported jax already).
+  entry points leaves ``jax`` and every module of the JAX package
+  ``barcoder_tpu`` out of ``sys.modules`` (checked in a fresh interpreter,
+  since this test process has imported both already).
+* No import statement of the port or of ``chip_smoke.py``, at module level
+  or inside a function, names ``barcoder_tpu``, ``jax`` or ``tests`` (whose
+  helpers import the JAX package).
 * The modules the port copies from the JAX package differ from their
-  originals in import lines only (exact line comparison).
+  originals in import lines only (exact line comparison), and the port's
+  ``Phases`` and ``dump_summary`` are verbatim copies.
 """
 
 import ast
+import inspect
 import json
 import os
 import subprocess
@@ -32,7 +38,16 @@ COPIES = {
     "pipeline/targets.py": "pipeline/targets.py",
     "ops/__init__.py": "ops/__init__.py",
     "__main__.py": "__main__.py",
+    **{f"core/{m}.py": f"core/{m}.py"
+       for m in ("__init__", "encode", "genome", "pam", "coords", "locus")},
+    **{f"seqio/{m}.py": f"seqio/{m}.py"
+       for m in ("__init__", "genbank", "fasta", "snapgene", "library")},
 }
+
+# what a fresh interpreter reports after running the port: every loaded
+# module of jax or of the JAX package
+_LOADED = """sorted(m for m in sys.modules if m in ("jax", "barcoder_tpu")
+                 or m.startswith(("jax.", "jaxlib", "barcoder_tpu.")))"""
 
 _PROBE = """
 import json, sys
@@ -43,9 +58,8 @@ import barcoder_tpu_torch.utils.profiling
 from barcoder_tpu_torch.cli.main import main
 rc = main(["targets", sys.argv[1], sys.argv[2], "NGG", "0"])
 sys.stdout.flush()
-print(json.dumps({"rc": rc, "jax": sorted(m for m in sys.modules
-                  if m == "jax" or m.startswith(("jax.", "jaxlib")))}), file=sys.stderr)
-"""
+print(json.dumps({"rc": rc, "jax": %s}), file=sys.stderr)
+""" % _LOADED
 
 
 def test_port_and_its_cli_never_import_jax(tmp_path):
@@ -85,10 +99,9 @@ report = measure_scaling(n_bp=4096, n_spacers=8, engine="both", device_counts=[1
 print(outs[1][1], end="")
 print(json.dumps({"rc": [rc for rc, _ in outs], "same": outs[0][1] == outs[1][1],
                   "engines": [k for k in ("flagship", "blockmax") if k in report],
-                  "jax": sorted(m for m in sys.modules
-                                if m == "jax" or m.startswith(("jax.", "jaxlib")))}),
+                  "jax": %s}),
       file=sys.stderr)
-"""
+""" % _LOADED
 
 
 def test_sharded_backend_and_scaling_never_import_jax(tmp_path):
@@ -126,9 +139,8 @@ for mod in (int8_bench, phase1_ablate, phase1_bench):
         mod.main([])
     except SystemExit as e:
         refused.append("needs a CUDA device" in str(e))
-print(json.dumps({"refused": refused, "jax": sorted(m for m in sys.modules
-                  if m == "jax" or m.startswith(("jax.", "jaxlib")))}))
-"""
+print(json.dumps({"refused": refused, "jax": %s}))
+""" % _LOADED
 
 
 def test_experiments_never_import_jax():
@@ -158,3 +170,51 @@ def test_copied_modules_differ_only_in_imports(port, original):
     got = _without_imports(REPO / "barcoder_tpu_torch" / port)
     want = _without_imports(REPO / "barcoder_tpu" / original)
     assert got == want
+
+
+def _imported_modules(path: Path) -> list[str]:
+    """Every module an import statement of ``path`` names, at any depth,
+    relative ones resolved against the file's package."""
+    rel = path.relative_to(REPO).with_suffix("")
+    package = list(rel.parts[:-1])  # a module's package, or an __init__'s own
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package[: len(package) - node.level + 1] if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            names += [mod] + [f"{mod}.{a.name}" for a in node.names]
+    return names
+
+
+_PORT_FILES = sorted(p.relative_to(REPO).as_posix()
+                     for p in (REPO / "barcoder_tpu_torch").rglob("*.py")) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("rel", _PORT_FILES)
+def test_port_imports_nothing_of_the_jax_package(rel):
+    """Statically, at every depth: no import of barcoder_tpu (or a module
+    under it), of jax, or of the tests (their helpers import the JAX
+    package)."""
+    bad = [m for m in _imported_modules(REPO / rel)
+           if m.split(".")[0] in ("barcoder_tpu", "jax", "jaxlib", "tests")]
+    assert bad == []
+
+
+def test_import_scan_sees_relative_and_nested_imports(tmp_path):
+    """The static scan resolves a relative import and one inside a function."""
+    pkg = REPO / "barcoder_tpu_torch" / "ops"
+    names = _imported_modules(pkg / "prep.py")
+    assert "barcoder_tpu_torch.core.genome.Contig" in names  # module level, relative
+    assert "barcoder_tpu_torch.core.encode._LUT" in names  # inside a function
+    assert "barcoder_tpu_torch.seqio.genbank.write_genbank" in _imported_modules(
+        REPO / "chip_smoke.py")
+
+
+@pytest.mark.parametrize("name", ["Phases", "dump_summary"])
+def test_profiling_copies_are_verbatim(name):
+    import barcoder_tpu.utils.profiling as original
+    import barcoder_tpu_torch.utils.profiling as port
+
+    assert inspect.getsource(getattr(port, name)) == inspect.getsource(getattr(original, name))
