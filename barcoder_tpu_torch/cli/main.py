@@ -2,9 +2,12 @@
 
 Commands:
   targets   ↔ targets.py        (guide→genome mapping)
+  design    ↔ design_guides.py  (genome-wide guide design)
 
-The other workloads (design, count, mismatch, distill, gui) are not ported
-yet and run on the JAX package: ``python -m barcoder_tpu <command> ...``.
+Both default to ``--backend auto`` (the ``cuda`` engine, which needs a
+card); ``--backend torch`` or ``oracle`` runs on the CPU. The other
+workloads (count, mismatch, distill, gui) are not ported yet and run on the
+JAX package: ``python -m barcoder_tpu <command> ...``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,10 @@ def main(argv=None) -> int:
     cmd, rest = argv[0], argv[1:]
     if cmd == "targets":
         from .targets import main as run
+
+        return run(rest)
+    if cmd == "design":
+        from .design import main as run
 
         return run(rest)
     print(f"unknown command: {cmd}\n", file=sys.stderr)

@@ -9,17 +9,17 @@ reporting every site on either strand with Hamming distance <= v whose PAM
 context matches.
 
 Backends:
-  ``cuda``   — the dense two-phase engine (``cuda_scan``) with the phase-1
-               CUDA kernel; raises when CUDA is absent or the kernel fails
-               to build or launch, and never falls back;
-  ``sharded`` — the genome-sharded engine (``parallel.sharded_scan``) over
-               every local device (``parallel.mesh.make_mesh``): all cards,
-               or the CPU where there is none;
+  ``cuda``   — the two-phase engine on one card (``cuda_scan``: dense, or
+               site-compacted under its ``site_mode="auto"`` rules) with
+               the phase-1 CUDA kernel; raises when CUDA is absent or the
+               kernel fails to build or launch, and never falls back;
+  ``sharded`` — the sharded engine (``parallel.sharded_scan``) over every
+               card (``parallel.mesh.make_mesh``); raises without one;
   ``torch``  — the plain torch scan (``ref_scan.torch_scan``), on the GPU
                when there is one, else on the CPU;
   ``oracle`` — the numpy oracle;
-  ``auto``   — ``cuda`` when ``torch.cuda.is_available()``, else ``torch``
-               (as the JAX package's ``auto`` gives ``jax`` off the TPU).
+  ``auto``   — ``cuda``, always: without a card it raises, as ``cuda``
+               does. A CPU run asks for ``torch`` or ``oracle``.
 """
 
 from __future__ import annotations
@@ -45,9 +45,16 @@ def resolve_backend(backend: Backend = "auto") -> str:
                 f"unknown scan backend {backend!r}; choose one of {('auto',) + _BACKENDS}"
             )
         return backend
-    b = "cuda" if torch.cuda.is_available() else "torch"
-    _log.info("scan backend auto -> %s", b)
-    return b
+    _log.info("scan backend auto -> cuda")
+    return "cuda"
+
+
+def _require_cuda(backend: str) -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"scan backend {backend!r} needs a CUDA device; pass --backend torch "
+            "(or oracle) to run on the CPU"
+        )
 
 
 def _torch_device() -> torch.device:
@@ -65,9 +72,9 @@ def scan_contigs(
     """Batched multi-contig scan; returns Hits in INPUT ORDER. The cuda
     engine shares one library prep across contigs."""
     b = resolve_backend(backend)
+    if b in ("cuda", "sharded"):
+        _require_cuda(b)
     if b == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("scan backend 'cuda' needs a CUDA device")
         from .cuda_scan import cuda_scan_contigs
 
         return cuda_scan_contigs(

@@ -28,8 +28,10 @@ BS = 128  # default spacer block height (the TPU kernel's MXU M dim)
 MASK_BIAS = -16384.0  # added to masked-out positions; far below any score
 
 # kernel launches since the counter was last reset (the smoke run resets it
-# and checks that the main path went through the kernel)
+# and checks that the main path went through the kernel), and of those the
+# launches in matrix_rows mode (the site engine's)
 launches = 0
+matrix_launches = 0
 
 _MAX_K = 128  # the kernel's deepest product: 4 k-steps of 32 int8 values
 
@@ -207,7 +209,7 @@ def q_chunks(q_onehot: torch.Tensor, n_sblocks: int, BS_M: int, K_eff: int) -> t
 
 def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,
             fold_bias, matrix_rows):
-    global launches
+    global launches, matrix_launches
     _check(q_onehot, tiles, bias_tiles, L=L, K=K, P=P, SUB=SUB, fold_bias=fold_bias,
            matrix_rows=matrix_rows)
     dev = q_onehot.device
@@ -250,4 +252,5 @@ def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,
     if rc != 0:
         raise RuntimeError(f"scan_hits kernel launch failed with CUDA error {rc}")
     launches += 1
+    matrix_launches += bool(matrix_rows)
     return out

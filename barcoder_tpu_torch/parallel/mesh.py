@@ -42,10 +42,14 @@ class Mesh:
 
 
 def local_devices() -> list[torch.device]:
-    """cuda:0..n-1 when CUDA is present, else the one CPU device."""
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    """cuda:0..n-1; raises without CUDA. A mesh on the CPU exists only when
+    the caller passes CPU devices (``make_mesh(devices=...)``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: pass the mesh's devices explicitly "
+            "(make_mesh(devices=[torch.device('cpu')] * n)) to run on the CPU"
+        )
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def default_tile(mesh: Mesh) -> int:
@@ -61,19 +65,16 @@ def _device_array(devices, shape) -> np.ndarray:
 
 
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
-    """1-D mesh over the genome axis."""
-    if devices is None:
-        devices = local_devices()
-        if n_devices is not None:
-            if n_devices > len(devices):
-                # silently truncating mislabels results: the scaling
-                # harness would report an 8-device measurement as 16
-                # devices with ~2x-understated efficiency
-                raise ValueError(
-                    f"requested {n_devices} devices, have {len(devices)}"
-                )
-            devices = devices[:n_devices]
-    devices = list(devices)
+    """1-D mesh over the genome axis: the first ``n_devices`` of ``devices``
+    (default: every card)."""
+    devices = local_devices() if devices is None else list(devices)
+    if n_devices is not None:
+        if n_devices > len(devices):
+            # silently truncating mislabels results: the scaling harness
+            # would report an 8-device measurement as 16 devices with
+            # ~2x-understated efficiency
+            raise ValueError(f"requested {n_devices} devices, have {len(devices)}")
+        devices = devices[:n_devices]
     return Mesh(_device_array(devices, (len(devices),)), (GENOME_AXIS,))
 
 

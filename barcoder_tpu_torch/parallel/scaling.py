@@ -9,14 +9,28 @@ because shards that share a device say nothing about scaling, only about
 the mechanics.
 
 Engines:
-  - ``flagship`` (default): the full ``sharded_scan`` path — strand-fused
-    folded-bias hit indicator, per-shard pair compaction and phase 2.
+  - ``flagship`` (default): the full ``sharded_scan`` path at its
+    defaults — an NGG scan, so the site-compacted engine (the JAX
+    harness's too): the hit indicator over each shard's PAM sites, per-shard
+    pair compaction and phase 2.
+  - ``dense``: the same call with ``site_mode="never"``, the dense engine
+    (every genome position on both strands), which all-N and PAM-less
+    scans take.
   - ``blockmax``: the previous-generation phase-1-only max-reduce path
     (``sharded_scan_block_max``, the ``scan_max`` kernel), kept for A/B.
 
+``--engine both`` times ``flagship`` and ``blockmax``; ``all`` adds
+``dense``. Each row names the engine it ran (``path``: ``site``, ``dense``
+or ``block_max``) and the (spacer, position) pairs that engine scores
+(``pairs``, ``pairs_per_s``): the site engine scores only the PAM sites,
+so its ``spacer_positions_per_s`` (2 x spacers x genome bases over the
+seconds, the same workload measure for every engine) is not its work.
+
 Run: ``python -m barcoder_tpu_torch.parallel.scaling [n_bp] [n_spacers]
-[--engine flagship|blockmax|both] [--single-chip] [--P N] [--devices 1,2]``;
-prints one JSON object.
+[--engine flagship|dense|blockmax|both|all] [--single-chip] [--P N]
+[--devices 1,2] [--device cpu]``; prints one JSON object. The shards go on the cards
+unless ``--device cpu`` (or ``devices=`` in :func:`measure_scaling`) asks
+for the CPU; without a card and without that, it raises.
 
 ``--single-chip`` also times the one-device engine (``ops.cuda_scan``) on
 a card, so the sharded-vs-single gap is printed directly. Each timed row
@@ -73,14 +87,27 @@ def _best_of(fn, repeats):
     return dt, last
 
 
-def _time_flagship(contig, spacers, mesh, P, repeats):
+def _time_sharded(contig, spacers, mesh, P, repeats, site_mode):
     from .sharded_scan import sharded_scan
 
     dt, hits = _best_of(
-        lambda: sharded_scan(spacers, contig, 1, pam="NGG", mesh=mesh, P=P),
+        lambda: sharded_scan(spacers, contig, 1, pam="NGG", mesh=mesh, P=P,
+                             site_mode=site_mode),
         repeats,
     )
     return dt, len(hits)
+
+
+def _pairs(path: str, contig, spacers, L: int) -> int:
+    """The (spacer, genome position) pairs ``path`` scores: the NGG sites
+    of both strands on the site engine, every position of both strands on
+    the dense one, every forward position on the block-max one."""
+    if path == "site":
+        from .sharded_scan import _site_table_host
+
+        (positions, _, _), _ = _site_table_host(contig, L, "NGG", "downstream")
+        return len(spacers) * len(positions)
+    return (2 if path == "dense" else 1) * len(spacers) * contig.length
 
 
 def blockmax_inputs(contig, spacers, L: int, device):
@@ -114,13 +141,25 @@ def _time_blockmax(contig, spacers, mesh, P, L, repeats):
 
 
 def _time_single_chip(contig, spacers, repeats):
-    """The one-device engine on a card (both strands, full extraction)."""
+    """The one-device engine on a card (both strands, full extraction), on
+    its site engine, which its steady NGG scans take, as the flagship's do."""
     from ..ops.cuda_scan import cuda_scan
 
     dt, hits = _best_of(
-        lambda: cuda_scan(spacers, contig, 1, pam="NGG", device="cuda"), repeats
+        lambda: cuda_scan(spacers, contig, 1, pam="NGG", device="cuda", site_mode="always"),
+        repeats,
     )
     return dt, len(hits)
+
+
+def _path(engine: str) -> str:
+    """The engine a harness engine runs: the flagship's NGG scan takes the
+    site engine by ``sharded_scan``'s own rule."""
+    from .sharded_scan import _want_sites
+
+    if engine == "blockmax":
+        return "block_max"
+    return "site" if engine == "flagship" and _want_sites("NGG", "auto") else "dense"
 
 
 def _launches() -> dict:
@@ -140,11 +179,12 @@ def measure_scaling(
     device_counts=None,
     engine: str = "flagship",
     single_chip: bool = False,
+    devices=None,
 ) -> dict:
-    """Time ``engine`` ("flagship", "blockmax" or "both") on meshes of
-    ``device_counts`` shards over the local devices (a mesh larger than
-    the pool repeats its devices)."""
-    pool = local_devices()
+    """Time ``engine`` ("flagship", "dense", "blockmax", "both" or "all")
+    on meshes of ``device_counts`` shards over ``devices`` (default: the
+    cards; a mesh larger than the pool repeats its devices)."""
+    pool = local_devices() if devices is None else [torch.device(d) for d in devices]
     platform = pool[0].type
     if device_counts is None:
         device_counts = sorted({1, 2, len(pool)} & set(range(1, len(pool) + 1)))
@@ -157,7 +197,10 @@ def measure_scaling(
     positions = 2 * len(spacers) * n_bp  # both strands
 
     fake = platform == "cpu" or any(m.repeats_a_device() for m in meshes.values())
-    engines = ["flagship", "blockmax"] if engine == "both" else [engine]
+    engines = {"both": ["flagship", "blockmax"],
+               "all": ["flagship", "dense", "blockmax"]}.get(engine, [engine])
+    if not set(engines) <= {"flagship", "dense", "blockmax"}:
+        raise ValueError(f"unknown engine {engine!r}")
     out = {
         "platform": platform,
         "device_kind": torch.cuda.get_device_name(0) if platform == "cuda" else "cpu",
@@ -174,20 +217,26 @@ def measure_scaling(
     for eng in engines:
         results = []
         base_rate = None
+        path = _path(eng)
         for nd in device_counts:
             mesh = meshes[nd]
             before = _launches()
-            if eng == "flagship":
-                dt, n_hits = _time_flagship(contig, spacers, mesh, P, repeats)
-            else:
+            if eng == "blockmax":
                 dt, n_hits = _time_blockmax(contig, spacers, mesh, P, L, repeats)
+            else:
+                dt, n_hits = _time_sharded(contig, spacers, mesh, P, repeats,
+                                           "never" if path == "dense" else "auto")
             rate = positions / dt
+            pairs = _pairs(path, contig, spacers, L)
             if base_rate is None:
                 base_rate = rate
             results.append(
                 {
                     "devices": nd,
+                    "path": path,
                     "seconds": dt,
+                    "pairs": pairs,
+                    "pairs_per_s": pairs / dt,
                     "spacer_positions_per_s": rate,
                     "per_device_rate": rate / nd,
                     "speedup": rate / base_rate,
@@ -204,8 +253,12 @@ def measure_scaling(
     elif single_chip:
         before = _launches()
         dt, n_hits = _time_single_chip(contig, spacers, repeats)
+        pairs = _pairs("site", contig, spacers, L)
         out["single_chip"] = {
+            "path": "site",
             "seconds": dt,
+            "pairs": pairs,
+            "pairs_per_s": pairs / dt,
             "spacer_positions_per_s": positions / dt,
             "hits": n_hits,
             "launches": _launched_since(before),
@@ -233,6 +286,7 @@ def main(argv=None) -> int:
     engine = _take(args, "--engine") or "flagship"
     P = _take(args, "--P")
     counts = _take(args, "--devices")
+    device = _take(args, "--device")
     single = "--single-chip" in args
     if single:
         args.remove("--single-chip")
@@ -244,6 +298,7 @@ def main(argv=None) -> int:
                 n_bp=n_bp, n_spacers=n_spacers, engine=engine, single_chip=single,
                 P=int(P) if P else None,
                 device_counts=[int(x) for x in counts.split(",")] if counts else None,
+                devices=[device] if device else None,
             ),
             indent=2,
         )

@@ -1,8 +1,22 @@
-"""Genome-axis sharded scan over a 1-D or 2-D mesh: the port of
-``barcoder_tpu/parallel/sharded_scan.py``'s dense engine (``sharded_scan``)
-and its older block-max API (``sharded_scan_block_max``).
+"""Sharded scan over a 1-D or 2-D mesh: the port of
+``barcoder_tpu/parallel/sharded_scan.py`` — the site-compacted engine that
+every PAM scan with an informative base takes (``sharded_scan``,
+``sharded_scan_many``, ``sharded_scan_contigs``), the dense engine, and the
+older block-max API (``sharded_scan_block_max``).
 
-Sharding design, as in the JAX package:
+Site engine (``_SiteScanRun``), as in the JAX package: the contig's
+PAM-valid windows (``ops.prep.enumerate_sites``, R-strand windows
+revcomped) form an (L_pad, n_sites) int8 site-code matrix whose SITE axis
+is split over the genome axis, Bs = ceil(n_sites / (n_gen * P)) * P columns
+per shard. Columns are independent windows, so there is no halo; a hit's
+global column is d * Bs + t * P2 + lane. Phase 1 per shard is the
+hit-indicator kernel in its ``matrix_rows`` mode (forward rows only, no
+bias), launched on every shard before any ``torch.nonzero`` syncs; phase 2
+re-scores each shard's pairs on gathered site subtiles. On a 2-D mesh the
+library axis is split too. ``sharded_scan_many`` serves many libraries
+against one genome with ``max_pending`` scans in flight.
+
+Dense engine design, as in the JAX package:
 
   - the genome position axis is split into contiguous blocks of B starts,
     one per genome shard; a shard also needs the first ``halo`` codes of
@@ -31,10 +45,7 @@ What the port does differently, and why:
     overflow header, ``_grow_caps`` and the ``_CAPS_MEMO``): phase 1's pairs
     and phase 2's hits are compacted with ``torch.nonzero``, which is exact,
     so nothing can overflow and nothing is retried; hits are decoded on the
-    device and gathered on the host, in place of the packed ``all_gather``;
-  - only the dense engine is ported. ``site_mode`` "auto" and "never" both
-    take it, which gives the Hits the JAX site engine gives; "always"
-    raises (ROADMAP module item 4).
+    device and gathered on the host, in place of the packed ``all_gather``.
 """
 
 from __future__ import annotations
@@ -47,8 +58,8 @@ import torch
 
 from ..core.genome import Contig
 from ..ops.cuda_scan import (
-    _compact_pairs, _content_digest, _score_pairs, _split_pairs,
-    _tiles_device_impl, onehot_rows,
+    _compact_pairs, _content_digest, _score_pairs, _split_pairs, _tiles_device_impl,
+    extract_matrix, load_sites, onehot_rows, site_artifact_key, site_indicator,
 )
 from ..ops.prep import build_scan_array, revcomp_matrix, site_masks, spacer_matrix
 from ..ops.scan_hits import BS, MASK_BIAS, _cdiv, bias_row, scan_block_hits
@@ -79,6 +90,18 @@ def _check_spacer_len(q_f: np.ndarray) -> None:
             f"sharded engine supports spacers up to {_MAX_SPACER_LEN} nt "
             f"(got {q_f.shape[1]})"
         )
+
+
+def _want_sites(pam: str, site_mode: str) -> bool:
+    """Engine choice for a PAM scan: site-compacted unless the PAM has no
+    informative (non-N) base, where every window-valid position would be a
+    site and the site matrix would cost ~L_pad bytes per genome base for no
+    saving. "always" still forces sites; "never" forbids them."""
+    if site_mode not in ("auto", "never", "always"):
+        raise ValueError(f"site_mode must be 'auto', 'never' or 'always', got {site_mode!r}")
+    if not pam or site_mode == "never":
+        return False
+    return site_mode == "always" or any(ch != "N" for ch in pam)
 
 
 def _phase2_geom(P: int, sub_width: int) -> tuple[int, int]:
@@ -262,7 +285,7 @@ def shard_state(spacers, contig: Contig, pam: str = "", pam_direction: str = "do
     pam_direction, mesh, P, sub_width)``, or None when there is nothing to
     scan (no spacers, or a contig shorter than the spacers)."""
     mesh = make_mesh() if mesh is None else mesh
-    q_f = spacer_matrix(list(spacers)) if not isinstance(spacers, np.ndarray) else spacers
+    q_f = _spacer_codes(spacers)
     g = _geometry(q_f.shape, contig, mesh, P, sub_width)
     if g is None:
         return None
@@ -326,10 +349,10 @@ def _nbytes(v) -> int:
     stack = [v]
     while stack:
         x = stack.pop()
-        if isinstance(x, torch.Tensor):
+        if isinstance(x, (torch.Tensor, np.ndarray)):
             if id(x) not in seen:
                 seen.add(id(x))
-                total += x.numel() * x.element_size()
+                total += x.nbytes if isinstance(x, np.ndarray) else x.numel() * x.element_size()
         elif isinstance(x, dict):
             stack.extend(x.values())
         elif isinstance(x, (list, tuple)):
@@ -341,15 +364,30 @@ class _ShardCache(OrderedDict):
     """LRU of per-shard device tensors keyed by content digest, geometry and
     the mesh's device list: a repeat scan of one genome and library over
     one mesh builds and ships nothing. Bounded by entries and by bytes, so
-    a few large libraries cannot pin device memory; ``hits`` and
-    ``misses`` count lookups."""
+    a few large libraries cannot pin device memory. ``stats()`` reports
+    hits, misses, evictions and the bytes built on misses: a warm serving
+    pass over a working set that fits shows no misses and no bytes."""
 
     def __init__(self, max_entries: int = 8, max_bytes: int = 1 << 30):
         super().__init__()
         self.max_entries = max_entries
         self.max_bytes = max_bytes
         self.nbytes: dict = {}
-        self.hits = self.misses = 0
+        self.reset_stats()
+
+    def stats(self) -> dict:
+        return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions,
+                "bytes_built": self.bytes_built, "entries": len(self),
+                "bytes_resident": sum(self.nbytes.values())}
+
+    def reset_stats(self) -> None:
+        self.hits = self.misses = self.evictions = self.bytes_built = 0
+
+    def clear(self) -> None:
+        """Drop every entry, its byte count and the counters."""
+        super().clear()
+        self.nbytes.clear()
+        self.reset_stats()
 
     def get_or_put(self, key, build):
         if key in self:
@@ -360,16 +398,35 @@ class _ShardCache(OrderedDict):
         self.misses += 1
         self[key] = value
         self.nbytes[key] = _nbytes(value)
+        self.bytes_built += self.nbytes[key]
         while len(self) > 1 and (len(self) > self.max_entries
                                  or sum(self.nbytes.values()) > self.max_bytes):
             old, _ = self.popitem(last=False)
             self.nbytes.pop(old)
+            self.evictions += 1
         return value
 
 
 _GENOME_SHARD_CACHE = _ShardCache()
 # sized for a serving set of libraries, not just one
 _Q_SHARD_CACHE = _ShardCache(max_entries=32)
+# host-memory site tables (numpy, backed by the on-disk artifact store),
+# kept out of the device caches so a large host table and its device codes
+# do not evict each other
+_SITE_HOST_CACHE = _ShardCache(max_entries=6, max_bytes=3 << 30)
+
+
+def serving_cache_stats(reset: bool = False) -> dict:
+    """Hit / miss / eviction / bytes counters of the genome-side, the
+    library-side and the host site-table caches; ``reset=True`` zeroes them
+    after reading."""
+    caches = {"genome": _GENOME_SHARD_CACHE, "q": _Q_SHARD_CACHE,
+              "site_host": _SITE_HOST_CACHE}
+    out = {name: c.stats() for name, c in caches.items()}
+    if reset:
+        for c in caches.values():
+            c.reset_stats()
+    return out
 
 
 def _mesh_key(mesh: Mesh) -> tuple:
@@ -460,6 +517,125 @@ def _run(st: ShardTensors, g: _Geom, mesh: Mesh, v: int) -> Hits:
     return Hits.concat(out).sorted()
 
 
+# --- the site-compacted engine -----------------------------------------------
+
+def _site_table_host(contig: Contig, L: int, pam: str, pam_direction: str):
+    """((positions, strands, codes), digest) for one contig: from this
+    process's host cache, else the on-disk artifact the one-card engine
+    shares, else enumerated (and stored)."""
+    digest = _content_digest(contig.codes)
+    art_key = site_artifact_key(digest, contig, L, pam, pam_direction)
+    table = _SITE_HOST_CACHE.get_or_put(
+        ("site_host", art_key), lambda: load_sites(art_key, contig, L, pam, pam_direction))
+    return table, digest
+
+
+class _SiteScanRun:
+    """One site-compacted sharded scan, split into dispatch (construction:
+    the shard state from the caches and phase 1 launched on every shard)
+    and collect (compaction, phase 2 and the decode), so that many scans
+    can have their device work queued before any result is read."""
+
+    def __init__(self, q_f: np.ndarray, contig: Contig, max_mismatches: int, pam: str,
+                 pam_direction: str, mesh: Mesh, P: int, sub_width: int):
+        _check_spacer_len(q_f)
+        n_lib, n_gen = _mesh_dims(mesh)
+        S, L = q_f.shape
+        (positions, strands, codes), digest = _site_table_host(contig, L, pam, pam_direction)
+        n_sites = len(positions)
+        self.empty = n_sites == 0 or S == 0
+        if self.empty:
+            return
+        K = max(_cdiv(4 * L, 128) * 128, 128)
+        SUB, P2 = _phase2_geom(P, sub_width)
+        BS_M = 512 if S >= 2048 else (256 if S >= 512 else BS)
+        L_pad = _cdiv(L, 8) * 8
+        Bs = _cdiv(n_sites, n_gen * P) * P
+        S_loc = _cdiv(S, n_lib * BS_M) * BS_M
+        mkey = _mesh_key(mesh)
+
+        def codes_to_shards():
+            codes_lp = np.full((L_pad, n_gen * Bs), 4, dtype=np.int8)
+            codes_lp[:L, :n_sites] = codes.T
+            return _per_shard(mesh, GENOME_AXIS,
+                              lambda d: _from_host(codes_lp[:, d * Bs : (d + 1) * Bs]))
+
+        self.codes = _GENOME_SHARD_CACHE.get_or_put(
+            ("site_codes", digest, contig.id, contig.length, bool(contig.circular), L, pam,
+             pam_direction, n_gen, Bs, mkey), codes_to_shards)
+        q_pad = np.full((n_lib * S_loc, L), 4, dtype=np.int8)
+        q_pad[:S] = q_f
+        # forward rows only; the constant-1 column of a foldable L meets
+        # zero G rows in matrix mode
+        self.q = _Q_SHARD_CACHE.get_or_put(
+            (_content_digest(q_pad), "site", K, n_lib, S_loc, mkey),
+            lambda: _q_to_shards(_host_onehot(q_pad, K, L, 4 * L < K, 0), mesh))
+        self.mesh, self.positions, self.strands = mesh, positions, strands
+        self.S, self.L, self.K, self.SUB, self.P2 = S, L, K, SUB, P2
+        self.BS_M, self.Bs, self.S_loc, self.n_sites = BS_M, Bs, S_loc, n_sites
+        self.v = int(max_mismatches)
+        grid = _grid(mesh)
+        thresh = {str(dev): torch.full((1,), float(L - self.v), dtype=torch.float32, device=dev)
+                  for dev in grid.ravel()}
+        # phase 1 on every shard before any shard's torch.nonzero syncs
+        self.inds = {
+            (li, d): site_indicator(self.codes[li, d], self.q[li, d], thresh[str(dev)], P=P,
+                                    L=L, K=K, SUB=SUB, BS_M=BS_M)
+            for (li, d), dev in np.ndenumerate(grid)
+        }
+
+    def _phase2(self, pairs, li: int, d: int) -> Hits:
+        """One shard's phase 2 in batches of ``_pair_chunk``, decoded to
+        global spacer indices and site columns."""
+        if len(pairs) == 0:
+            return Hits()
+        t_idx, s_idx = _split_pairs(pairs, _cdiv(self.S_loc // self.BS_M, 8) * 8, self.SUB)
+        q_blocks = self.q[li, d].reshape(-1, self.BS_M, self.K)
+        chunk = _pair_chunk(self.BS_M, self.P2)
+        out = []
+        for c0 in range(0, len(pairs), chunk):
+            tc, sc = t_idx[c0 : c0 + chunk], s_idx[c0 : c0 + chunk]
+            b, row, col, mm = extract_matrix(q_blocks, self.codes[li, d],
+                                             self.n_sites - d * self.Bs, tc, sc, L=self.L,
+                                             K=self.K, P2=self.P2, thresh=self.v)
+            spacer = li * self.S_loc + sc[b] * self.BS_M + row
+            keep = spacer < self.S
+            site = (d * self.Bs + tc[b] * self.P2 + col)[keep].cpu().numpy()
+            out.append(Hits(spacer_idx=spacer[keep].cpu().numpy().astype(np.int64),
+                            pos=self.positions[site].astype(np.int64),
+                            strand=self.strands[site].astype(np.int8),
+                            mismatches=mm[keep].cpu().numpy().astype(np.int32)))
+        return Hits.concat(out)
+
+    def collect(self) -> Hits:
+        if self.empty:
+            return Hits()
+        return Hits.concat([self._phase2(_compact_pairs(ind), li, d)
+                            for (li, d), ind in self.inds.items()]).sorted()
+
+
+def _windowed_collect(makers, max_pending: int) -> list:
+    """Run dispatch/collect jobs with at most ``max_pending`` in flight: the
+    oldest job is collected before the next is constructed (construction
+    dispatches). Results in input order."""
+    results: list = [None] * len(makers)
+    pending: list = []
+    for i, make in enumerate(makers):
+        if len(pending) >= max_pending:
+            j, run = pending.pop(0)
+            results[j] = run.collect()
+        pending.append((i, make()))
+    for j, run in pending:
+        results[j] = run.collect()
+    return results
+
+
+def _spacer_codes(spacers) -> np.ndarray:
+    return spacer_matrix(list(spacers)) if not isinstance(spacers, np.ndarray) else spacers
+
+
+# --- entry points ------------------------------------------------------------
+
 def sharded_scan(
     spacers,
     contig: Contig,
@@ -471,27 +647,51 @@ def sharded_scan(
     sub_width: int = 512,
     site_mode: str = "auto",
 ) -> Hits:
-    """Full multi-shard scan on the dense engine: sharded (strand-fused)
-    phase 1, per-shard pair compaction and phase 2, hits gathered on the
-    host. Same contract as ``ops.scan.scan_contig``.
+    """Full multi-shard scan, hits gathered on the host; same contract as
+    ``ops.scan.scan_contig``. A PAM scan with an informative base takes the
+    site-compacted engine (``_want_sites``; "never" forces the dense one,
+    "always" forces sites); the dense engine runs the strand-fused phase 1,
+    per-shard pair compaction and phase 2.
 
     There are no capacities to size: ``torch.nonzero`` compacts the pairs
     and the hits exactly, so no scan overflows or retries."""
-    if site_mode not in ("auto", "never", "always"):
-        raise ValueError(f"site_mode must be 'auto', 'never' or 'always', got {site_mode!r}")
     mesh = make_mesh() if mesh is None else mesh
-    q_f = spacer_matrix(list(spacers)) if not isinstance(spacers, np.ndarray) else spacers
+    q_f = _spacer_codes(spacers)
     _check_spacer_len(q_f)
-    if site_mode == "always" and pam and q_f.shape[0]:
-        raise NotImplementedError(
-            "the sharded site engine (site_mode='always') is not ported yet "
-            "(ROADMAP module item 4); 'auto' and 'never' give the same Hits"
-        )
+    if _want_sites(pam, site_mode) and q_f.shape[0]:
+        return _SiteScanRun(q_f, contig, max_mismatches, pam, pam_direction, mesh, P,
+                            sub_width).collect()
     g = _geometry(q_f.shape, contig, mesh, P, sub_width)
     if g is None:
         return Hits()
     return _run(_device_state(q_f, contig, pam, pam_direction, mesh, g), g, mesh,
                 int(max_mismatches))
+
+
+def sharded_scan_many(
+    libraries,
+    contig: Contig,
+    max_mismatches: int,
+    pam: str,
+    pam_direction: str = "downstream",
+    mesh: Mesh | None = None,
+    P: int = 2048,
+    sub_width: int = 512,
+    max_pending: int = 4,
+) -> list[Hits]:
+    """Serving: scan many libraries against one contig on the site engine,
+    each library's phase 1 launched before the results of up to
+    ``max_pending`` earlier libraries are read. Requires a PAM. Hits in
+    input order."""
+    if not pam:
+        raise ValueError("sharded_scan_many serves PAM site-compacted scans")
+    mesh = make_mesh() if mesh is None else mesh
+    makers = [
+        lambda sp=sp: _SiteScanRun(_spacer_codes(sp), contig, max_mismatches, pam,
+                                   pam_direction, mesh, P, sub_width)
+        for sp in libraries
+    ]
+    return _windowed_collect(makers, max_pending)
 
 
 def sharded_scan_contigs(
@@ -504,16 +704,26 @@ def sharded_scan_contigs(
     P: int = 2048,
     sub_width: int = 512,
     site_mode: str = "auto",
+    max_pending: int = 4,
 ) -> list[Hits]:
-    """Multi-contig sharded scan, one contig after another on the dense
-    engine (the JAX engine's dense form); Hits in INPUT ORDER."""
+    """Multi-contig sharded scan; Hits in INPUT ORDER. Site scans are
+    windowed like ``sharded_scan_many`` (each contig's phase 1 launched
+    ahead of earlier contigs' collects); dense scans run one contig after
+    another."""
     mesh = make_mesh() if mesh is None else mesh
-    q_f = spacer_matrix(list(spacers)) if not isinstance(spacers, np.ndarray) else spacers
-    return [
-        sharded_scan(q_f, c, max_mismatches, pam, pam_direction, mesh=mesh, P=P,
-                     sub_width=sub_width, site_mode=site_mode)
+    q_f = _spacer_codes(spacers)
+    if not (q_f.shape[0] and _want_sites(pam, site_mode)):
+        return [
+            sharded_scan(q_f, c, max_mismatches, pam, pam_direction, mesh=mesh, P=P,
+                         sub_width=sub_width, site_mode=site_mode)
+            for c in contigs
+        ]
+    makers = [
+        lambda c=c: _SiteScanRun(q_f, c, max_mismatches, pam, pam_direction, mesh, P,
+                                 sub_width)
         for c in contigs
     ]
+    return _windowed_collect(makers, max_pending)
 
 
 # --- the older phase-1-only block-max API (the scaling harness's A/B) --------

@@ -25,26 +25,53 @@ Phases (any failure is a non-zero exit; nothing is caught):
    4.6 Mb circular synthetic genome (~4,200 genes, one across the origin):
    a 9,984-spacer 20-nt library plus planted guides (NGG, v = 3), the same
    again (steady state), and a 32-nt library (NGNC, v = 1). Every planted
-   guide must come back at 0 mismatches, the kernel must have launched, and
-   request 1's Hits must equal the plain ``torch_scan`` on the card; each
-   20-nt request launches the kernel once (both strands in one launch), the
-   32-nt request twice (one per strand); then the CLI answers once in a
-   subprocess.
+   guide must come back at 0 mismatches and the kernel must have launched.
+   Request 1 (the first scan of the genome) takes the dense engine and
+   launches the kernel once (both strands in one launch); request 2, the
+   second scan of the same (genome, NGG, 20) key, is promoted to the
+   site-compacted engine, as in the JAX package, and launches it once in
+   its ``matrix_rows`` mode; request 3 is dense, two launches (one per
+   strand); the engine each took is read from the site-table cache. Then
+   request 1's library on the site and on the dense engine (``site_mode``
+   "always" and "never"): both Hits equal the plain ``torch_scan`` on the
+   card. The CLI answers once in a subprocess.
+3b. the site phase: the kernel in ``matrix_rows`` mode at the shapes the
+   site engine gives it, from the real site tables (36 tiles of 16,384 site
+   columns): the 20-nt request (10,240 rows, K_eff 96) and the 32-nt
+   library on its NGNC sites (K_eff 128), each bit-equal to its plain
+   version, timed beside it, beside its bound and beside ``torch._int_mm``
+   + ``amax`` of the same product.
 5. the sharded path: request 1 through ``run_targets(backend="sharded")``
-   (the frame must equal the cuda backend's), then ``sharded_scan`` over
-   request 1's library and genome on a 1-shard mesh and on a 4-shard mesh
-   of the same card (Hits equal to the cuda backend's, every planted guide
-   found) and ``sharded_scan_block_max`` on both meshes (block_max and
-   totals equal to its plain version's on the card); both kernels must
-   have launched in that run. Steady walls of the cuda backend and the two
-   sharded meshes; then the scaling harness
+   (the site engine; the frame must equal the cuda backend's), then
+   ``sharded_scan`` over request 1's library and genome on a 1-shard mesh
+   and on a 4-shard mesh of the same card (and one shard per card on a
+   machine with several): the site engine and, with ``site_mode="never"``,
+   the dense one, Hits equal to the cuda backend's, every planted guide
+   found; ``sharded_scan_many`` over 8 libraries of ~1,250 spacers drawn
+   from request 1's, each equal to its solo scan; and
+   ``sharded_scan_block_max`` on both meshes (block_max and totals equal to
+   its plain version's on the card); both kernels, and ``scan_hits`` in
+   both modes, must have launched in that run. Steady walls of the cuda
+   backend and the sharded meshes; then the scaling harness
    (``python -m barcoder_tpu_torch.parallel.scaling 4600000 10240 --engine
-   both --single-chip``) in a subprocess, its JSON printed on one line:
+   all --single-chip``: the flagship on the site engine, the dense engine,
+   the block max and the one-card engine) in a subprocess, its JSON printed
+   on one line: the site, dense and one-card hit counts must agree, and
    every row it timed must have launched its kernel (the harness counts
    launches per row). Last, the harness's block-max workload in this
    process, with the launch count at 0 before it: block_max and totals
    equal to the plain version's, and every spacer scoring L at its own
    genome window.
+5b. the design workload: ``python -m barcoder_tpu_torch design genome.gb
+   NGG 20`` on the 4.6 Mb genome in a subprocess (its candidate count, from
+   ``--sgrna-out``, must equal the enumeration's), then ``run_design`` in
+   this process with the launch counts at 0 (the same TSV; the kernel must
+   have launched in ``matrix_rows`` mode; every kept guide must be its own
+   site's window at 0 mismatches), then the kernel at the design scan's
+   full shape (36 tiles x 589,824 rows; its plain version and the
+   ``torch._int_mm`` yardstick over 32,768-row chunks) and, on a 200 kb
+   slice, the ``cuda`` backend's design frame (dense, then site-promoted)
+   equal to the ``torch`` backend's.
 6. the three experiment kernels (the ports of ``experiments/int8_bench.py``,
    ``phase1_ablate.py`` and ``phase1_bench.py``) at their scripts' full
    shapes: the column max in int8 and bf16 (16 tiles x 40 blocks x 512
@@ -62,20 +89,35 @@ each path's count taken from 0 just before it) and their sum, its time, its
 plain version's time, its bound (the larger of its operations over the
 card's tensor rate for their type and its bytes over the memory rate) and,
 where one PyTorch call computes the same function, that call's time. The
+operations are those the function needs: for ``scan_hits`` 2 per pair for
+each of the 4L one-hot rows and each folded bias row; its
+``issued_bound_ms`` is the same bound at the depth it issues (K_eff, a
+multiple of wgmma's k-step of 32). The
 tensor rates are the card's own (``peaks`` in the line): its SM count x
 the type's dense operations per SM per clock x its highest SM clock.
 
 With ``--profile DIR``, a fourth phase times three steady-state runs of
-the 20-nt and the 32-nt request, then runs each once under
-``torch.profiler``: it prints the phase timings, the device time summed
-over the CUDA-side events (kernels and copies), the device busy share
-(that sum over the profiled wall) and the largest device events, and
-writes each trace to ``DIR/trace_L{20,32}.json``. It then does the same
+the 20-nt request (the site engine, its table cached), the 32-nt request
+and the 4.6 Mb design run, then runs each once under ``torch.profiler``:
+it prints the phase timings, the device time summed over the CUDA-side
+events (kernels and copies), the device busy share (that sum over the
+profiled wall) and the largest device events, and writes each trace to
+``DIR/trace_{L20,L32,design}.json``. It repeats the measurements behind
+two settings: the dense/site crossover (walls of both engines, the site
+table cached, loaded from disk and built, for request 1's library and
+design-scale libraries of 65,536 to ~575k spacers), which sets
+``_SITE_MODE_MIN_SPACERS``, and the steady 20-nt request on the cuda and
+sharded backends alternated, which decides what ``auto`` takes. It then
+does the same
 for the scaling harness's workload through ``sharded_scan`` and
 ``sharded_scan_block_max``, on one card and, on a machine with several,
 on one shard per card, splitting each profiled call into each card's busy
 time, the device idle share and the host's torch ops
 (``DIR/trace_{flagship,block_max}_{1,N}.json``).
+
+Site tables are written to a fresh temporary ``BARCODER_TPU_ARTIFACTS``
+directory, so a table left on the machine by an earlier run cannot change
+which engine request 1 takes.
 
 Prints the card's name and power limit, one JSON line of kernel results
 (five kernels), and last ``{"ok": true, "device": {...}}``.
@@ -147,6 +189,20 @@ def bound(ops: float, kind: str, n_bytes: int) -> dict:
                 ops=ops, bytes=n_bytes)
 
 
+def hits_bound(L: int, bias_rows: int, fold: bool, pairs: int, n_bytes: int) -> dict:
+    """The scan_hits kernel's bound: 2 operations per pair for each of the
+    4L one-hot rows and each folded bias row the function needs (an added
+    bias is one addition per column maximum, left out).
+    ``issued_bound_ms`` is the same bound at the depth the kernel issues,
+    K_eff, those rows rounded up to wgmma's k-step of 32."""
+    from barcoder_tpu_torch.ops import scan_hits
+
+    b = bound(2 * (4 * L + (bias_rows if fold else 0)) * pairs, "int8", n_bytes)
+    b["issued_bound_ms"] = bound(2 * scan_hits.k_eff(L, bias_rows, fold) * pairs, "int8",
+                                 n_bytes)["bound_ms"]
+    return b
+
+
 # --- phase 2 -----------------------------------------------------------------
 
 def enqueue_ms(fn, reps: int = 5) -> float:
@@ -195,6 +251,38 @@ def kernel_case(rng, *, L, fold_rows, S_pad, n_tiles=8, P=16384, SUB=32, BS_M=51
     return args, kw
 
 
+def int_mm_library_ms(args, kw, got, *, rows: int = 1 << 15, reps: int = 2) -> float:
+    """The yardstick: the kernel's int8 product and column max through
+    ``torch._int_mm`` + ``amax``, one call per tile and chunk of at most
+    ``rows`` rows (Q cut to K_eff; G with the folded bias as -128, as
+    ``int8_g`` builds it; an additive bias added after the max). Its hit
+    counts must equal the kernel's ``got``; returns its time."""
+    from barcoder_tpu_torch.ops import scan_hits
+
+    th, q, tiles, bias = args
+    L, P, BS_M, SUB, fold = kw["L"], kw["P"], kw["BS_M"], kw["SUB"], kw["fold_bias"]
+    k_eff = scan_hits.k_eff(L, bias.shape[1], fold)
+    n_sb = q.shape[0] // BS_M
+    q8 = q[: n_sb * BS_M, :k_eff].to(torch.int8).contiguous()
+    windows = tiles[:, :L] if kw.get("matrix_rows") else tiles[:, 0].unfold(-1, P, 1)[:, :L]
+    g8 = scan_hits.int8_g(windows, bias, K_eff=k_eff, fold=fold)
+    step = max(rows // BS_M, 1) * BS_M
+
+    def library():
+        cols = []
+        for t in range(g8.shape[0]):
+            cm = torch.cat([torch._int_mm(q8[r0 : r0 + step], g8[t]).view(-1, BS_M, P)
+                            .amax(dim=1) for r0 in range(0, q8.shape[0], step)])
+            cols.append(cm if fold else cm + bias[t, 0])
+        return torch.stack(cols)
+
+    counts = (library() >= th[0]).reshape(-1, n_sb, SUB, P // SUB).sum(dim=3)
+    if not torch.equal(counts.to(torch.float32), got[:, :n_sb]):
+        raise AssertionError("torch._int_mm + amax disagrees with the kernel's counts")
+    del counts
+    return cuda_ms(library, reps=reps)
+
+
 def phase2_kernel_vs_plain() -> dict:
     from barcoder_tpu_torch.ops import scan_hits
 
@@ -217,17 +305,18 @@ def phase2_kernel_vs_plain() -> dict:
         plain_ms = cuda_ms(lambda: scan_hits.scan_block_hits_reference(*args, **kw))
         ms = cuda_ms(lambda: scan_hits.scan_block_hits(*args, **kw))
         host_ms = enqueue_ms(lambda: scan_hits.scan_block_hits(*args, **kw))
+        library_ms = int_mm_library_ms(args, kw, got, reps=5)
         pairs = args[1].shape[0] // kw["BS_M"] * kw["BS_M"] * args[2].shape[0] * kw["P"]
-        k_eff = scan_hits.k_eff(kw["L"], args[3].shape[1], kw["fold_bias"])
         results[name] = dict(
-            max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, host_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
             hit_columns=float(want.sum()),
             pairs_per_s=pairs / (ms / 1e3), shape=dict(spec, n_tiles=args[2].shape[0]),
-            **bound(2 * k_eff * pairs, "int8", nbytes(*args, got)),
+            **hits_bound(kw["L"], args[3].shape[1], kw["fold_bias"], pairs,
+                         nbytes(*args, got)),
         )
         log(f"phase 2 {name}: bit-equal, max_abs_err {err}, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, {pairs / (ms / 1e3):.4e} pairs/s, host enqueue "
-            f"{host_ms:.4f} ms a call")
+            f"plain {plain_ms:.4f} ms, torch._int_mm + amax {library_ms:.4f} ms, "
+            f"{pairs / (ms / 1e3):.4e} pairs/s, host enqueue {host_ms:.4f} ms a call")
     return results
 
 
@@ -256,26 +345,12 @@ def phase2_request_shape() -> dict:
     ms = cuda_ms(lambda: scan_hits.scan_block_hits(*args, **kw))
     plain_ms = cuda_ms(lambda: scan_hits.scan_block_hits_reference(*args, **kw), reps=2)
 
-    # the yardstick: the same int8 product and column max through torch._int_mm
     L, P, BS_M, SUB = kw["L"], kw["P"], kw["BS_M"], kw["SUB"]
     k_eff = scan_hits.k_eff(L, bias.shape[1], True)
     n_sb = q.shape[0] // BS_M
-    q8 = q[:, :k_eff].to(torch.int8).contiguous()
-    g8 = scan_hits.int8_g(tiles[:, 0].unfold(-1, P, 1)[:, :L], bias, K_eff=k_eff,
-                          fold=True)
-
-    def library():
-        return [torch._int_mm(q8, g8[t]).view(n_sb, BS_M, P).amax(dim=1)
-                for t in range(g8.shape[0])]
-
-    colmax = torch.stack(library())
-    counts = (colmax >= th[0]).reshape(-1, n_sb, SUB, P // SUB).sum(dim=3)
-    if not torch.equal(counts.to(torch.float32), got[:, :n_sb]):
-        raise AssertionError("torch._int_mm + amax disagrees with the kernel's counts")
-    del colmax, counts
-    library_ms = cuda_ms(library, reps=2)
+    library_ms = int_mm_library_ms(args, kw, got, rows=q.shape[0])
     pairs = n_sb * BS_M * tiles.shape[0] * P
-    b = bound(2 * k_eff * pairs, "int8", nbytes(*args, got))
+    b = hits_bound(L, bias.shape[1], True, pairs, nbytes(*args, got))
     regs = max(r["registers"] for r in report)
     out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                pairs_per_s=pairs / (ms / 1e3), bound_share=b["bound_ms"] / ms,
@@ -321,7 +396,7 @@ def max_kernel_case(rng, *, L, fold, SUB, S_pad=10_240, n_pad=240, n_tiles=8, P=
 
 
 def phase2b_max_kernel_vs_plain() -> dict:
-    from barcoder_tpu_torch.ops import scan_hits, scan_max
+    from barcoder_tpu_torch.ops import scan_max
 
     rng = np.random.default_rng(SEED + 2)
     cases = [
@@ -342,11 +417,11 @@ def phase2b_max_kernel_vs_plain() -> dict:
         plain_ms = cuda_ms(lambda: scan_max.scan_block_max_reference(*args, **kw))
         ms = cuda_ms(lambda: scan_max.scan_block_max(*args, **kw))
         pairs = args[0].shape[0] // 128 * 128 * args[1].shape[0] * kw["P"]
-        k_eff = scan_hits.k_eff(kw["L"], 1, kw["fold_bias"])  # its product's depth in int8
+        depth = 4 * kw["L"] + kw["fold_bias"]  # its 0/1 product's depth
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              pairs_per_s=pairs / (ms / 1e3), shape=dict(spec, n_tiles=8,
                                                                        S_pad=args[0].shape[0]),
-                             **bound(2 * k_eff * pairs, "int8", nbytes(*args, got)))
+                             **bound(2 * depth * pairs, "int8", nbytes(*args, got)))
         log(f"phase 2b {name}: bit-equal, max_abs_err {err}, kernel {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms, {pairs / (ms / 1e3):.4e} pairs/s")
     return results
@@ -463,23 +538,31 @@ def check_planted(result, plants, n: int) -> None:
 
 
 def phase3_main_path(rec, genome, libs, plants) -> dict:
-    from barcoder_tpu_torch.ops import scan_hits
+    from barcoder_tpu_torch.ops import cuda_scan, scan_hits
     from barcoder_tpu_torch.pipeline.targets import run_targets, write_output
 
+    # (name, library, PAM, v, planted guides, site tables cached after it)
     requests = [
-        ("request1_L20_NGG_v3", libs[20], "NGG", 3, plants[20]),
-        ("request2_L20_NGG_v3_steady", libs[20], "NGG", 3, plants[20]),
-        ("request3_L32_NGNC_v1", libs[32], "NGNC", 1, plants[32]),
+        ("request1_L20_NGG_v3", libs[20], "NGG", 3, plants[20], 0),
+        ("request2_L20_NGG_v3_steady", libs[20], "NGG", 3, plants[20], 1),
+        ("request3_L32_NGNC_v1", libs[32], "NGNC", 1, plants[32], 1),
     ]
+    cuda_scan._SITE_DEV_CACHE.clear()
+    cuda_scan._SITE_SEEN.clear()
     out = {}
     per_request = {}
-    for name, lib, pam, v, planted in requests:
-        scan_hits.launches = 0
+    for name, lib, pam, v, planted, tables in requests:
+        scan_hits.launches = scan_hits.matrix_launches = 0
         t0 = time.perf_counter()
         result = run_targets(lib, genome, pam, v, backend="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        per_request[name] = scan_hits.launches
+        per_request[name] = (scan_hits.launches, scan_hits.matrix_launches)
+        # the engine each request took, read from the site-table cache: the
+        # second request of the (genome, NGG, 20) key builds the only table
+        if len(cuda_scan._SITE_DEV_CACHE) != tables:
+            raise AssertionError(f"{name}: {len(cuda_scan._SITE_DEV_CACHE)} site tables "
+                                 f"cached, expected {tables}")
         check_planted(result, planted, genome.contigs[0].length)
         table = result.table
         if len(table) == 0 or "spacer" not in table.columns:
@@ -488,41 +571,158 @@ def phase3_main_path(rec, genome, libs, plants) -> dict:
         write_output(result, sink)
         sink.close()
         prof = result.stats["profile"]
+        engine = "site" if scan_hits.matrix_launches else "dense"
         out[name] = dict(wall_s=wall, rows=len(table), hits=prof["counters"]["hits"],
-                         phases_s=prof["timings_s"])
-        log(f"phase 3 {name}: {wall:.4f} s, {len(table)} rows, "
+                         engine=engine, phases_s=prof["timings_s"])
+        log(f"phase 3 {name}: {engine} engine, {wall:.4f} s, {len(table)} rows, "
             f"{prof['counters']['hits']} hits, phases {prof['timings_s']}")
-    # both strands of a 20-nt library in one launch; one launch per strand at 32 nt
-    expect = {name: 2 if "L32" in name else 1 for name, *_ in requests}
+    # (launches, of which in matrix_rows mode): a dense 20-nt request scores
+    # both strands in one launch, a 32-nt one needs one per strand; the
+    # promoted request 2 launches once in matrix_rows mode
+    expect = {"request1_L20_NGG_v3": (1, 0), "request2_L20_NGG_v3_steady": (1, 1),
+              "request3_L32_NGNC_v1": (2, 0)}
     if per_request != expect:
         raise AssertionError(f"scan_hits launches per request {per_request}, expected {expect}")
-    launches = sum(per_request.values())
-    log(f"phase 3: scan_hits kernel launched {launches} times: {per_request}")
-    out["launches"] = launches
+    log(f"phase 3: scan_hits launches (all, matrix_rows) per request: {per_request}")
+    out["launches_dense"] = per_request["request1_L20_NGG_v3"][0] + per_request[
+        "request3_L32_NGNC_v1"][0]
+    out["launches_site"] = per_request["request2_L20_NGG_v3_steady"][0]
     out["launches_per_request"] = per_request
     return out
 
 
-def phase3_hits_vs_plain(genome, libs) -> dict:
-    """Request 1's Hits from the cuda backend against the plain torch scan,
-    both on the card, on the library's unique sequences."""
+def planted_tuples(seqs, plants) -> set:
+    index = {s: i for i, s in enumerate(seqs)}
+    return {(index[g], pos, 0 if strand == "F" else 1, 0) for g, pos, strand, _ in plants}
+
+
+def hit_tuples(h) -> set:
+    return set(zip(h.spacer_idx.tolist(), h.pos.tolist(), h.strand.tolist(),
+                   h.mismatches.tolist()))
+
+
+def phase3_hits_vs_plain(genome, libs, plants) -> dict:
+    """Request 1's library on the site engine and on the dense engine
+    (``site_mode`` "always" and "never") against the plain torch scan, all
+    on the card, on the library's unique sequences; every planted guide at
+    0 mismatches."""
+    from barcoder_tpu_torch.ops.cuda_scan import cuda_scan_contigs
     from barcoder_tpu_torch.ops.ref_scan import torch_scan
-    from barcoder_tpu_torch.ops.scan import scan_contigs
 
     seqs = list(dict.fromkeys(s for _, s in libs[20].entries))
     contig = genome.contigs[0]
+    got, secs = {}, {}
+    for mode in ("always", "never"):
+        t0 = time.perf_counter()
+        got[mode] = cuda_scan_contigs(seqs, [contig], 3, "NGG", site_mode=mode)[0]
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    got = scan_contigs(seqs, [contig], 3, "NGG", backend="cuda")[0]
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
     want = torch_scan(seqs, contig, 3, "NGG", device="cuda")
-    t2 = time.perf_counter()
-    for f in ("spacer_idx", "pos", "strand", "mismatches"):
-        if not np.array_equal(getattr(got, f), getattr(want, f)):
-            raise AssertionError(f"cuda Hits differ from torch_scan in {f}")
-    log(f"phase 3: cuda Hits == torch_scan Hits ({len(got)} hits; cuda scan "
-        f"{t1 - t0:.4f} s, torch_scan {t2 - t1:.4f} s)")
-    return dict(hits=len(got), cuda_scan_s=t1 - t0, torch_scan_s=t2 - t1), got
+    torch_s = time.perf_counter() - t0
+    for mode, hits in got.items():
+        if not same_hits(hits, want):
+            raise AssertionError(f"site_mode={mode!r} Hits differ from torch_scan's")
+    if not planted_tuples(seqs, plants[20]) <= hit_tuples(want):
+        raise AssertionError("a planted guide is missing from request 1's Hits")
+    log(f"phase 3: site-engine Hits == dense-engine Hits == torch_scan Hits ({len(want)} "
+        f"hits, every planted guide at 0 mismatches; site scan {secs['always']:.4f} s, "
+        f"dense scan {secs['never']:.4f} s, torch_scan {torch_s:.4f} s)")
+    return dict(hits=len(want), site_scan_s=secs["always"], dense_scan_s=secs["never"],
+                torch_scan_s=torch_s), got["always"]
+
+
+def plain_by_blocks(args, kw, rows: int):
+    """The kernel's plain version over chunks of whole spacer blocks of at
+    most ``rows`` rows (blocks are independent), so its (rows, P) score
+    matrix stays bounded at design scale: the same function."""
+    from barcoder_tpu_torch.ops import scan_hits
+
+    th, q, tiles, bias = args
+    BS_M = kw["BS_M"]
+    n_sb = q.shape[0] // BS_M
+    step = max(rows // BS_M, 1)
+    parts = [scan_hits.scan_block_hits_reference(
+                 th, q[b0 * BS_M : min(b0 + step, n_sb) * BS_M], tiles, bias, **kw)[
+                 :, : min(step, n_sb - b0)]
+             for b0 in range(0, n_sb, step)]
+    out = torch.cat(parts, dim=1)
+    return torch.nn.functional.pad(out, (0, 0, 0, -(-n_sb // 8) * 8 - n_sb))
+
+
+def site_kernel_args(prep, table):
+    """The kernel's arguments on the site path (``_SiteScanJob``): the site
+    tiles, a zero bias and the forward one-hot rows."""
+    from barcoder_tpu_torch.ops.cuda_scan import site_tiles
+
+    tiles = site_tiles(table.codes_lp, prep.P)
+    bias = torch.zeros((tiles.shape[0], 1, prep.P), dtype=torch.float32, device=tiles.device)
+    kw = dict(L=prep.L, K=prep.K, P=prep.P, SUB=prep.SUB, BS_M=prep.bs, fold_bias=False,
+              matrix_rows=True)
+    return (prep.thresh_dev, prep.q_dev[0], tiles, bias), kw
+
+
+def matrix_kernel_check(name: str, args, kw, *, rows: int, plain_reps: int = 2) -> dict:
+    """The kernel in matrix_rows mode against its plain version (bit-equal),
+    timed beside it, beside its bound and beside torch._int_mm + amax of the
+    same int8 product (whose hit counts must agree)."""
+    from barcoder_tpu_torch.ops import scan_hits
+
+    th, q, tiles, bias = args
+    L, P, BS_M, SUB = kw["L"], kw["P"], kw["BS_M"], kw["SUB"]
+    got = scan_hits.scan_block_hits(*args, **kw)
+    want = plain_by_blocks(args, kw, rows)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"({int((got != want).sum())} entries)")
+    err = float((got - want).abs().max())
+    del want
+    ms = cuda_ms(lambda: scan_hits.scan_block_hits(*args, **kw))
+    plain_ms = cuda_ms(lambda: plain_by_blocks(args, kw, rows), reps=plain_reps)
+    k_eff = scan_hits.k_eff(L, 1, False)
+    n_sb = q.shape[0] // BS_M
+    library_ms = int_mm_library_ms(args, kw, got, rows=rows, reps=plain_reps)
+    pairs = n_sb * BS_M * tiles.shape[0] * P
+    b = hits_bound(L, 1, False, pairs, nbytes(*args, got))
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               pairs_per_s=pairs / (ms / 1e3), bound_share=b["bound_ms"] / ms,
+               hit_columns=float(got.sum()), k_eff=k_eff,
+               shape=dict(n_tiles=tiles.shape[0], rows=q.shape[0], L=L, P=P, SUB=SUB,
+                          BS_M=BS_M, matrix_rows=True), **b)
+    log(f"{name}: matrix_rows {tiles.shape[0]} tiles x {q.shape[0]} rows, L {L}, K_eff "
+        f"{k_eff}: bit-equal, max_abs_err {err}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch._int_mm + amax {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}), share {b['bound_ms'] / ms:.4f}, {pairs / (ms / 1e3):.4e} pairs/s, "
+        f"{float(got.sum()):.0f} hit columns")
+    return out
+
+
+def phase3b_site_kernel(genome, libs) -> dict:
+    """The kernel in matrix_rows mode at the site engine's shapes on the
+    4.6 Mb genome: request 1's library on its NGG sites (the table request
+    2 cached) and the 32-nt library on its NGNC sites (a table built here,
+    not cached, so later scans choose their engine as before)."""
+    from barcoder_tpu_torch.ops import cuda_scan
+    from barcoder_tpu_torch.ops.prep import enumerate_sites, spacer_matrix
+
+    contig = genome.contigs[0]
+    dev = torch.device("cuda")
+    out = {}
+    for name, L, pam, v in (("site_L20", 20, "NGG", 3), ("site_L32", 32, "NGNC", 1)):
+        seqs = list(dict.fromkeys(s for _, s in libs[L].entries))
+        prep = cuda_scan._QPrep(spacer_matrix(seqs), v, pam, "downstream",
+                                cuda_scan.DEFAULT_P, 512, dev)
+        if L == 20:
+            table = cuda_scan._site_table_for(prep, contig, "always")
+        else:
+            table = cuda_scan._SiteTable(prep.P, L, *enumerate_sites(contig, L, pam,
+                                                                     "downstream"), dev)
+        args, kw = site_kernel_args(prep, table)
+        out[name] = matrix_kernel_check(f"phase 3b {name} ({table.n_sites} sites)", args, kw,
+                                        rows=1 << 15)
+        out[name]["n_sites"] = table.n_sites
+    return out
 
 
 def phase3_cli(rec) -> None:
@@ -586,73 +786,102 @@ def walls(fn, reps: int = 3) -> list:
 
 def phase5_sharded(genome, libs, plants, cuda_hits) -> dict:
     """The sharded path on the card: run_targets(backend="sharded"),
-    sharded_scan and sharded_scan_block_max on 1 and 4 shards of cuda:0."""
+    sharded_scan (site and dense engines), sharded_scan_many and
+    sharded_scan_block_max on 1 and 4 shards of cuda:0, and on one shard
+    per card where there are several."""
     import pandas as pd
 
     from barcoder_tpu_torch.ops import scan_hits, scan_max
-    from barcoder_tpu_torch.ops.cuda_scan import onehot_rows
+    from barcoder_tpu_torch.ops.cuda_scan import cuda_scan_contigs, onehot_rows
     from barcoder_tpu_torch.ops.prep import build_scan_array, site_masks, spacer_matrix
     from barcoder_tpu_torch.ops.scan import scan_contigs
     from barcoder_tpu_torch.parallel.mesh import make_mesh
-    from barcoder_tpu_torch.parallel.sharded_scan import sharded_scan, sharded_scan_block_max
+    from barcoder_tpu_torch.parallel.sharded_scan import (
+        serving_cache_stats, sharded_scan, sharded_scan_block_max, sharded_scan_many,
+    )
     from barcoder_tpu_torch.pipeline.targets import run_targets
 
     seqs = list(dict.fromkeys(s for _, s in libs[20].entries))
     contig = genome.contigs[0]
     dev = torch.device("cuda", 0)
-    meshes = {1: make_mesh(devices=[dev]), 4: make_mesh(devices=[dev] * 4)}
+    meshes = {"1": make_mesh(devices=[dev]), "4": make_mesh(devices=[dev] * 4)}
+    if torch.cuda.device_count() > 1:
+        meshes["cards"] = make_mesh()
     L, K, P = 20, 128, 16384
     q = torch.from_numpy(onehot_rows(spacer_matrix(seqs), K)).to(dev, torch.bfloat16)
     scan = build_scan_array(contig, L).astype(np.int32)
     mask = site_masks(contig, L, "NGG", "downstream")[0].astype(np.int32)
+    many_libs = [seqs[k::8] for k in range(8)]
 
     # the path, with every launch counter at 0 just before it
-    scan_hits.launches = 0
+    scan_hits.launches = scan_hits.matrix_launches = 0
     scan_max.launches = 0
     t0 = time.perf_counter()
     result = run_targets(libs[20], genome, "NGG", 3, backend="sharded")
     torch.cuda.synchronize()
     targets_s = time.perf_counter() - t0
-    hits, block = {}, {}
+    hits, dense, many, block = {}, {}, {}, {}
     for n, mesh in meshes.items():
         hits[n] = sharded_scan(seqs, contig, 3, "NGG", mesh=mesh, P=P)
+        dense[n] = sharded_scan(seqs, contig, 3, "NGG", mesh=mesh, P=P, site_mode="never")
+        many[n] = sharded_scan_many(many_libs, contig, 3, "NGG", mesh=mesh, P=P)
         block[n] = sharded_scan_block_max(q, scan, mask, mesh, L=L, K=K, P=P)
     torch.cuda.synchronize()
     launches = {"scan_hits": scan_hits.launches, "scan_max": scan_max.launches}
-    log(f"phase 5: launches on the sharded path {launches}")
+    matrix = scan_hits.matrix_launches
+    log(f"phase 5: launches on the sharded path {launches}, {matrix} of scan_hits in "
+        f"matrix_rows mode; caches {json.dumps(serving_cache_stats())}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the sharded path never launched the {name} kernel")
+    if matrix == 0 or matrix == launches["scan_hits"]:
+        raise AssertionError("the sharded path did not launch scan_hits in both modes")
 
     check_planted(result, plants[20], contig.length)
     pd.testing.assert_frame_equal(result.table,
                                   run_targets(libs[20], genome, "NGG", 3, backend="cuda").table)
-    index = {s: i for i, s in enumerate(seqs)}
-    planted = {(index[g], pos, 0 if strand == "F" else 1, 0) for g, pos, strand, _ in plants[20]}
-    out = dict(launches=launches, targets_sharded_s=targets_s, hits=len(cuda_hits))
+    planted = planted_tuples(seqs, plants[20])
+    out = dict(launches=launches, matrix_launches=matrix, targets_sharded_s=targets_s,
+               hits=len(cuda_hits))
+    solo = [cuda_scan_contigs(lib, [contig], 3, "NGG", site_mode="always")[0]
+            for lib in many_libs]
     max_err = 0.0
     for n in meshes:
-        if not same_hits(hits[n], cuda_hits):
-            raise AssertionError(f"sharded Hits on {n} shards differ from the cuda backend's")
-        got = set(zip(hits[n].spacer_idx.tolist(), hits[n].pos.tolist(),
-                      hits[n].strand.tolist(), hits[n].mismatches.tolist()))
-        if not planted <= got:
-            raise AssertionError(f"planted guides missing on {n} shards: {planted - got}")
+        for engine, got in (("site", hits[n]), ("dense", dense[n])):
+            if not same_hits(got, cuda_hits):
+                raise AssertionError(f"sharded {engine} Hits on mesh {n} differ from the cuda "
+                                     "backend's")
+            if not planted <= hit_tuples(got):
+                raise AssertionError(f"planted guides missing on mesh {n} ({engine})")
+        for k, (got, want) in enumerate(zip(many[n], solo)):
+            if not same_hits(got, want):
+                raise AssertionError(f"sharded_scan_many library {k} on mesh {n} differs from "
+                                     "its solo scan")
         with plain_block_max():
             want_max, want_totals = sharded_scan_block_max(q, scan, mask, meshes[n], L=L, K=K,
                                                            P=P)
         if not (np.array_equal(block[n][0], want_max)
                 and np.array_equal(block[n][1], want_totals)):
-            raise AssertionError(f"block max on {n} shards differs from its plain version")
+            raise AssertionError(f"block max on mesh {n} differs from its plain version")
         max_err = max(max_err, float(np.abs(block[n][0] - want_max).max()))
-        log(f"phase 5: {n} shard(s): Hits == cuda Hits ({len(cuda_hits)}), planted found; "
-            f"block_max {block[n][0].shape} and totals == plain")
+        log(f"phase 5: mesh {n} ({meshes[n].devices.size} shards): site and dense Hits == "
+            f"cuda Hits ({len(cuda_hits)}), planted found; sharded_scan_many 8 x "
+            f"{len(many_libs[0])} == solo scans; block_max {block[n][0].shape} and totals "
+            "== plain")
     out["block_max_err"] = max_err
 
     contig_list = [contig]
     out["walls_s"] = {
         "cuda": walls(lambda: scan_contigs(seqs, contig_list, 3, "NGG", backend="cuda")),
+        "cuda_dense": walls(lambda: cuda_scan_contigs(seqs, contig_list, 3, "NGG",
+                                                      site_mode="never")),
         **{f"sharded_{n}": walls(lambda m=m: sharded_scan(seqs, contig, 3, "NGG", mesh=m, P=P))
+           for n, m in meshes.items()},
+        **{f"sharded_dense_{n}": walls(lambda m=m: sharded_scan(seqs, contig, 3, "NGG", mesh=m,
+                                                                P=P, site_mode="never"))
+           for n, m in meshes.items()},
+        **{f"many_8_{n}": walls(lambda m=m: sharded_scan_many(many_libs, contig, 3, "NGG",
+                                                              mesh=m, P=P))
            for n, m in meshes.items()},
         **{f"block_max_{n}": walls(lambda m=m: sharded_scan_block_max(q, scan, mask, m, L=L,
                                                                       K=K, P=P))
@@ -666,7 +895,7 @@ def phase5_sharded(genome, libs, plants, cuda_hits) -> dict:
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "barcoder_tpu_torch.parallel.scaling", "4600000", "10240",
-         "--engine", "both", "--single-chip"],
+         "--engine", "all", "--single-chip"],
         capture_output=True, text=True, timeout=600,
         cwd=os.path.dirname(os.path.abspath(__file__)),
     )
@@ -676,20 +905,22 @@ def phase5_sharded(genome, libs, plants, cuda_hits) -> dict:
     out["harness"] = report
     out["harness_s"] = time.perf_counter() - t0
     log(f"phase 5 harness ({out['harness_s']:.2f} s): {json.dumps(report)}")
-    if report["flagship"][0]["hits"] != report["single_chip"]["hits"]:
-        raise AssertionError("harness: sharded and single-card hit counts differ")
+    if len({r["hits"] for r in report["flagship"] + report["dense"]
+            + [report["single_chip"]]}) != 1:
+        raise AssertionError("harness: the site, dense and single-card hit counts differ")
     # each timed row went through its kernel (the harness counts launches)
-    for rows, kernel in ((report["flagship"], "scan_hits"), (report["blockmax"], "scan_max"),
+    for rows, kernel in ((report["flagship"], "scan_hits"), (report["dense"], "scan_hits"),
+                         (report["blockmax"], "scan_max"),
                          ([report["single_chip"]], "scan_hits")):
         for row in rows:
             if row["launches"][kernel] == 0:
                 raise AssertionError(f"harness row {row} never launched the {kernel} kernel")
     out["harness_launches"] = {
-        "scan_hits": sum(r["launches"]["scan_hits"]
-                         for r in report["flagship"] + [report["single_chip"]]),
+        "scan_hits": sum(r["launches"]["scan_hits"] for r in
+                         report["flagship"] + report["dense"] + [report["single_chip"]]),
         "scan_max": sum(r["launches"]["scan_max"] for r in report["blockmax"]),
     }
-    out["harness_block_max"] = harness_block_max(meshes[1], P)
+    out["harness_block_max"] = harness_block_max(meshes["1"], P)
     return out
 
 
@@ -721,6 +952,114 @@ def harness_block_max(mesh, P: int) -> dict:
     log(f"phase 5 harness block max: {got_max.shape} and totals == plain, "
         f"{len(spacers)} spacers score {L} at their windows, {launches} launches")
     return dict(launches=launches, max_abs_err=float(np.abs(got_max - want_max).max()))
+
+
+# --- phase 5b ----------------------------------------------------------------
+
+def check_design_guides(final, seq: str) -> None:
+    """Every kept guide is the window of its own reported site at 0
+    mismatches (a site across the origin is reported at a negative start)."""
+    n = len(seq)
+    ext = seq + seq[:64]
+    for sp, start, end, sp_dir, mm in zip(final["spacer"], final["tar_start"],
+                                          final["tar_end"], final["sp_dir"],
+                                          final["mismatches"]):
+        window = ext[int(start) % n : int(start) % n + len(sp)]
+        if sp_dir == "R":
+            window = revcomp(window)
+        if int(mm) != 0 or int(end) - int(start) != len(sp) or window != sp:
+            raise AssertionError(f"kept guide {sp} is not its site's window at "
+                                 f"{start}..{end} ({sp_dir}, {mm} mismatches)")
+
+
+def slice_genome(rec, n: int):
+    """The first n bases of ``rec`` with the genes that lie inside them."""
+    from barcoder_tpu_torch.core.genome import Genome, contig_from_record
+    from barcoder_tpu_torch.seqio.genbank import GenBankRecord, Location
+
+    small = GenBankRecord(id="SLICE0.1", name="SLICE0", description="slice", seq=rec.seq[:n],
+                          topology="circular", organism="x",
+                          features=[f for f in rec.features
+                                    if isinstance(f.location, Location) and f.location.end <= n])
+    return Genome([contig_from_record(small)], source="synthetic")
+
+
+def phase5b_design(rec, genome) -> dict:
+    """The design workload on the 4.6 Mb genome: the CLI in a subprocess,
+    run_design in this process (the path, counts at 0 just before it), the
+    kernel at the design scan's full shape, and the cuda backend's frame
+    against the torch backend's on a 200 kb slice."""
+    import pandas as pd
+
+    from barcoder_tpu_torch.ops import cuda_scan, scan_hits
+    from barcoder_tpu_torch.ops.prep import spacer_matrix
+    from barcoder_tpu_torch.pipeline.design import find_candidate_guides, run_design
+    from barcoder_tpu_torch.seqio.genbank import write_genbank
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        gb, fa = os.path.join(d, "genome.gb"), os.path.join(d, "candidates.fa")
+        write_genbank([rec], gb)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "barcoder_tpu_torch", "design", gb, "NGG", "20",
+             "--sgrna-out", fa],
+            capture_output=True, text=True, timeout=900,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        out["cli_wall_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"design CLI failed:\n{proc.stderr[-3000:]}")
+        with open(fa) as fh:
+            n_cli = sum(1 for line in fh if line.startswith(">"))
+    t0 = time.perf_counter()
+    candidates = find_candidate_guides(genome, 20, "NGG")
+    out["enumerate_s"] = time.perf_counter() - t0
+    if n_cli != len(candidates):
+        raise AssertionError(f"the design CLI wrote {n_cli} candidates, the enumeration "
+                             f"finds {len(candidates)}")
+    log(f"phase 5b: design CLI ({out['cli_wall_s']:.2f} s): {n_cli} candidates, "
+        f"{len(proc.stdout.splitlines()) - 1} guides kept")
+
+    scan_hits.launches = scan_hits.matrix_launches = 0
+    t0 = time.perf_counter()
+    final, tr, cands = run_design(genome, "NGG", 20, backend="cuda")
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"], out["matrix_launches"] = scan_hits.launches, scan_hits.matrix_launches
+    if out["matrix_launches"] == 0 or out["launches"] != out["matrix_launches"]:
+        raise AssertionError(f"design launched scan_hits {out['launches']} times, "
+                             f"{out['matrix_launches']} in matrix_rows mode")
+    if final.to_csv(sep="\t", index=False, na_rep="None") != proc.stdout:
+        raise AssertionError("the design CLI's TSV differs from run_design's frame")
+    check_design_guides(final, rec.seq)
+    out.update(candidates=len(cands), targets_rows=len(tr.table), kept=len(final),
+               phases_s=tr.stats["profile"]["timings_s"])
+    log(f"phase 5b: run_design ({out['wall_s']:.2f} s, enumeration {out['enumerate_s']:.2f} "
+        f"s): {len(cands)} candidates, {len(tr.table)} target rows, {len(final)} kept, each "
+        f"its own site at 0 mismatches; scan_hits launches {out['launches']} (matrix_rows "
+        f"{out['matrix_launches']}); phases {out['phases_s']}")
+
+    prep = cuda_scan._get_prep(spacer_matrix(cands), 1, "NGG", "downstream",
+                               cuda_scan.DEFAULT_P, 512, torch.device("cuda"))
+    table = cuda_scan._site_table_for(prep, genome.contigs[0], "always")
+    args, kw = site_kernel_args(prep, table)
+    out["kernel"] = matrix_kernel_check(f"phase 5b design_L20 ({table.n_sites} sites)", args,
+                                        kw, rows=1 << 15, plain_reps=1)
+    del args, prep, table
+
+    small = slice_genome(rec, 200_000)
+    want, _, _ = run_design(small, "NGG", 20, backend="torch")
+    for attempt in ("first (dense)", "second (site)"):
+        scan_hits.matrix_launches = 0
+        got, _, small_cands = run_design(small, "NGG", 20, backend="cuda")
+        pd.testing.assert_frame_equal(got, want)
+        if bool(scan_hits.matrix_launches) != attempt.startswith("second"):
+            raise AssertionError(f"200 kb design, {attempt} call: wrong engine")
+    log(f"phase 5b: 200 kb slice ({len(small_cands)} candidates): cuda design frame == "
+        f"torch design frame, dense and site-promoted ({len(want)} guides kept)")
+    out["slice_kept"] = len(want)
+    return out
 
 
 # --- phase 6 -----------------------------------------------------------------
@@ -810,12 +1149,11 @@ def phase6_experiment_kernels() -> dict:
     hits = scan_hits.scan_block_hits(th, q, tiles, bias, fold_bias=True, **kw)
     hits_ms = cuda_ms(lambda: scan_hits.scan_block_hits(th, q, tiles, bias, fold_bias=True,
                                                         **kw))
-    hits_bound = bound(2 * scan_hits.k_eff(a.L, 2, True) * pairs, "int8",
-                       nbytes(th, q, tiles, bias, hits))
+    hb = hits_bound(a.L, 2, True, pairs, nbytes(th, q, tiles, bias, hits))
     log(f"phase 6 scan_hits (int8 wgmma) at the same shapes: {hits_ms:.4f} ms, "
         f"{pairs / (hits_ms / 1e3):.4e} pairs/s, {int(hits.sum())} hit columns, bound "
-        f"{hits_bound['bound_ms']:.4f} ms ({hits_bound['bound_by']}), share "
-        f"{hits_bound['bound_ms'] / hits_ms:.4f}")
+        f"{hb['bound_ms']:.4f} ms ({hb['bound_by']}), share {hb['bound_ms'] / hits_ms:.4f}, "
+        f"issued {hb['issued_bound_ms']:.4f} ms")
     if hits.sum() == 0:
         raise AssertionError("phase 6 inputs give no hits")
     phase1_bound = bound(2 * a.K * pairs, "bf16", nbytes(th, q, tiles, bias, hits))
@@ -873,16 +1211,23 @@ def phase6_entry_points() -> dict:
 # --- phase 4 (--profile) -----------------------------------------------------
 
 def phase4_profile(genome, libs, trace_dir: str, reps: int = 3) -> dict:
+    """The steady 20-nt request (the site engine, table cached), the 32-nt
+    request and the design run, each timed steady and profiled once."""
     from torch.profiler import ProfilerActivity, profile
 
+    from barcoder_tpu_torch.pipeline.design import run_design
     from barcoder_tpu_torch.pipeline.targets import run_targets
 
     os.makedirs(trace_dir, exist_ok=True)
     out = {}
-    for L, pam, v in ((20, "NGG", 3), (32, "NGNC", 1)):
+    for name, L, pam, v in (("L20", 20, "NGG", 3), ("L32", 32, "NGNC", 1),
+                            ("design", 20, "NGG", 1)):
         def request():
             t0 = time.perf_counter()
-            r = run_targets(libs[L], genome, pam, v, backend="cuda")
+            if name == "design":
+                r = run_design(genome, pam, L, backend="cuda")[1]
+            else:
+                r = run_targets(libs[L], genome, pam, v, backend="cuda")
             torch.cuda.synchronize()
             return r, time.perf_counter() - t0
 
@@ -899,17 +1244,73 @@ def phase4_profile(genome, libs, trace_dir: str, reps: int = 3) -> dict:
             key=lambda d: -d[1],
         )
         dev_ms = sum(d[1] for d in dev)
-        prof.export_chrome_trace(os.path.join(trace_dir, f"trace_L{L}.json"))
-        out[f"L{L}"] = dict(
+        prof.export_chrome_trace(os.path.join(trace_dir, f"trace_{name}.json"))
+        out[name] = dict(
             steady_walls_s=walls, profiled_wall_s=wall, device_ms=dev_ms,
             busy_share=dev_ms / (wall * 1e3), phases_s=r.stats["profile"]["timings_s"],
             top=[dict(name=k[:110], ms=ms, count=n) for k, ms, n in dev[:12]],
         )
-        log(f"phase 4 L={L}: steady walls {walls} s; profiled {wall:.6f} s, "
+        log(f"phase 4 {name}: steady walls {walls} s; profiled {wall:.6f} s, "
             f"device {dev_ms:.4f} ms, busy share {dev_ms / (wall * 1e3):.4f}, "
             f"phases {r.stats['profile']['timings_s']}")
         for k, ms, n in dev[:12]:
             log(f"   {ms:10.4f} ms  x{n:5d}  {k[:110]}")
+    return out
+
+
+def crossover(contig, libraries: dict) -> dict:
+    """Dense against site engine on the card for each library (name →
+    spacers), the engine forced by ``site_mode``: walls of the dense engine
+    (scan array and library prep cached), of the site engine with its table
+    cached, with the table loaded from the on-disk artifact, and built from
+    scratch (artifacts off: host enumeration, table build and ship). What
+    sets ``_SITE_MODE_MIN_SPACERS``."""
+    from barcoder_tpu_torch.ops import cuda_scan
+
+    def scan(spacers, mode, drop_table=False):
+        def run():
+            if drop_table:
+                cuda_scan._SITE_DEV_CACHE.clear()
+            cuda_scan.cuda_scan_contigs(spacers, [contig], 1, "NGG", site_mode=mode)
+        return run
+
+    out = {}
+    for name, spacers in libraries.items():
+        reps = 2 if len(spacers) > 100_000 else 3
+        row = {"dense": walls(scan(spacers, "never"), reps),
+               "site_cached": walls(scan(spacers, "always"), reps),
+               "site_from_artifact": walls(scan(spacers, "always", True), reps)}
+        os.environ["BARCODER_TPU_NO_ARTIFACTS"] = "1"
+        try:
+            row["site_built"] = walls(scan(spacers, "always", True), reps)
+        finally:
+            del os.environ["BARCODER_TPU_NO_ARTIFACTS"]
+        cuda_scan._site_table_for(cuda_scan._get_prep(
+            cuda_scan.spacer_matrix(spacers), 1, "NGG", "downstream", cuda_scan.DEFAULT_P,
+            512, torch.device("cuda")), contig, "always")  # cached again
+        out[name] = row
+        log(f"phase 4 crossover, {len(spacers)} spacers, v = 1 (walls, s): {row}")
+    return out
+
+
+def phase4_decisions(genome, libs) -> dict:
+    """The measurements behind two settings, made again only when they are
+    in question: the dense/site crossover walls on request 1's library and
+    on design-scale libraries (``_SITE_MODE_MIN_SPACERS``), and the steady
+    20-nt request end to end on the cuda and the sharded backend,
+    alternated (which one ``auto`` takes)."""
+    from barcoder_tpu_torch.pipeline.design import find_candidate_guides
+    from barcoder_tpu_torch.pipeline.targets import run_targets
+
+    cands = find_candidate_guides(genome, 20, "NGG")
+    seqs20 = list(dict.fromkeys(s for _, s in libs[20].entries))
+    out = {"crossover": crossover(genome.contigs[0], {
+        "request_L20": seqs20, **{f"design_{n}": cands[:n] for n in (65_536, 98_304, 131_072)},
+        "design": cands})}
+    out["request_walls_s"] = {
+        f"{b}_{i}": walls(lambda b=b: run_targets(libs[20], genome, "NGG", 3, backend=b))
+        for i in range(2) for b in ("cuda", "sharded")}
+    log(f"phase 4 steady 20-nt request walls (s): {out['request_walls_s']}")
     return out
 
 
@@ -1011,6 +1412,11 @@ def main(argv=None) -> int:
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     from barcoder_tpu_torch.ops import nvcc
 
+    # site tables of this run only: one left on disk by an earlier run would
+    # send request 1 to the site engine
+    artifacts = tempfile.TemporaryDirectory(prefix="chip_smoke_artifacts_")
+    os.environ["BARCODER_TPU_ARTIFACTS"] = artifacts.name
+
     kind = torch.cuda.get_device_name(0)
     log(card_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
@@ -1030,23 +1436,29 @@ def main(argv=None) -> int:
     k2b = phase2b_max_kernel_vs_plain()
     rec, genome, libs, plants = build_inputs()
     main_path = phase3_main_path(rec, genome, libs, plants)
-    vs_plain, cuda_hits = phase3_hits_vs_plain(genome, libs)
+    vs_plain, cuda_hits = phase3_hits_vs_plain(genome, libs, plants)
+    site = phase3b_site_kernel(genome, libs)
     phase3_cli(rec)
     sharded = phase5_sharded(genome, libs, plants, cuda_hits)
+    design = phase5b_design(rec, genome)
     experiments = phase6_experiment_kernels()
     entry_points = phase6_entry_points()
     prof = None
     if args.profile:
         prof = {"targets": phase4_profile(genome, libs, args.profile),
+                "decisions": phase4_decisions(genome, libs),
                 "sharded": phase4_profile_sharded(args.profile)}
 
     log(json.dumps({"build_s": build_s, "phase2": k, "phase2_request_shape": k_req,
                     "phase2b": k2b, "phase3": main_path,
-                    "hits_vs_plain": vs_plain, "phase5": sharded, "phase6": experiments,
+                    "hits_vs_plain": vs_plain, "phase3b_site": site, "phase5": sharded,
+                    "phase5b_design": design, "phase6": experiments,
                     "phase6_entry_points": entry_points, "profile": prof}))
     # launches per path, each path's counts taken from 0 just before it
     by_path = {
-        "scan_hits": {"targets_cuda": main_path["launches"],
+        "scan_hits": {"targets_cuda": main_path["launches_dense"],
+                      "site": main_path["launches_site"],
+                      "design": design["launches"],
                       "sharded": sharded["launches"]["scan_hits"],
                       "harness": sharded["harness_launches"]["scan_hits"],
                       "phase1_bench": entry_points["phase1_bench"]["scan_hits"]},
@@ -1064,9 +1476,12 @@ def main(argv=None) -> int:
                "launches_by_path": by_path[name], "max_abs_err": err, "ms": head["ms"],
                "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                "bound_by": head["bound_by"], "library_ms": head.get("library_ms")}
+        if "issued_bound_ms" in head:
+            row["issued_bound_ms"] = head["issued_bound_ms"]
         if variants:
             row["variants"] = {v: {key: r.get(key) for key in
-                                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "issued_bound_ms") if key in r}
                                for v, r in variants.items()}
         return row
 
@@ -1075,7 +1490,8 @@ def main(argv=None) -> int:
 
     log(json.dumps({"kernels": [
         kernel("scan_hits", "scan_hits.cu", "barcoder_tpu/ops/pallas_scan.py:124",
-               max(worst(k), k_req["max_abs_err"]), k_req, k),
+               max(worst(k), worst(site), k_req["max_abs_err"], design["kernel"]["max_abs_err"]),
+               k_req, {**k, "request_shape": k_req, **site, "design_L20": design["kernel"]}),
         kernel("scan_max", "scan_max.cu", "barcoder_tpu/ops/pallas_scan.py:77",
                max(worst(k2b), sharded["block_max_err"],
                    sharded["harness_block_max"]["max_abs_err"]), k2b["L20_additive_SUB1"]),
@@ -1089,6 +1505,7 @@ def main(argv=None) -> int:
                worst(experiments["phase1_epilogue"]), experiments["phase1_epilogue"]["d"],
                experiments["phase1_epilogue"]),
     ], "peaks": PEAKS}))
+    artifacts.cleanup()
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -146,6 +146,19 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture(autouse=True)
+def site_isolation(tmp_path, monkeypatch):
+    """Each test's own artifact directory and fresh site caches and repeat
+    counters, so no test's site table promotes another's first scan."""
+    from barcoder_tpu_torch.ops import cuda_scan as cs
+    from barcoder_tpu_torch.parallel import sharded_scan as ss
+
+    monkeypatch.setenv("BARCODER_TPU_ARTIFACTS", str(tmp_path / "artifacts"))
+    cs._SITE_DEV_CACHE.clear()
+    cs._SITE_SEEN.clear()
+    ss._SITE_HOST_CACHE.clear()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("matrix_rows", [False, True])
 @pytest.mark.parametrize("mode,L", MODES)
@@ -450,3 +463,102 @@ def test_experiment_entry_points_need_cuda(monkeypatch, name):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA device"):
         mod.main([])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,pam,v", [(20, "NGG", 3), (24, "NGG", 2), (32, "NGNC", 1)])
+def test_cuda_site_engine_matches_torch_scan(cuda, L, pam, v):
+    """The site engine on the card (the kernel in matrix_rows mode) against
+    the plain torch scan on the card and the dense engine, on both
+    topologies, at a narrow and at the full tile width."""
+    from barcoder_tpu_torch.ops.ref_scan import torch_scan
+
+    rng = np.random.default_rng(L + v + 1)
+    for topology in ("circular", "linear"):
+        rec = make_record(n=30_000, topology=topology, seed=L + v)
+        guides = [random_seq(L, rng) for _ in range(40)]
+        for i, g in enumerate(guides):
+            plant_guide(rec, g, 100 + 700 * i, pam="AGG" if pam == "NGG" else "AGTC",
+                        strand="F" if i % 2 else "R")
+        contig = contig_from_record(rec)
+        want = torch_scan(guides, contig, v, pam, device=cuda)
+        assert {(i, 100 + 700 * i) for i in range(len(guides))} <= set(
+            zip(want.spacer_idx.tolist(), want.pos.tolist()))
+        for P_tile in (512, 16384):
+            before = scan_hits.launches
+            got = cuda_scan(guides, contig, v, pam, P=P_tile, device=cuda, site_mode="always")
+            assert scan_hits.launches == before + 1  # one launch, any L
+            dense = cuda_scan(guides, contig, v, pam, P=P_tile, device=cuda, site_mode="never")
+            for f in ("spacer_idx", "pos", "strand", "mismatches"):
+                assert np.array_equal(getattr(got, f), getattr(want, f)), (topology, P_tile, f)
+                assert np.array_equal(getattr(dense, f), getattr(want, f)), (topology, P_tile, f)
+
+
+@pytest.mark.gpu
+def test_sharded_site_engine_on_one_card(cuda):
+    """The sharded site engine on 1 and 4 shards of one card (and one shard
+    per card where there are several), sharded_scan_many among them: Hits
+    equal to the one-card engine's."""
+    from barcoder_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from barcoder_tpu_torch.parallel.sharded_scan import sharded_scan, sharded_scan_many
+
+    rng = np.random.default_rng(17)
+    rec = make_record(n=60_000, topology="circular", seed=17)
+    guides = [random_seq(20, rng) for _ in range(600)]
+    for i in range(0, 600, 40):
+        plant_guide(rec, guides[i], 200 + 3500 * (i // 40), pam="CGG",
+                    strand="F" if i % 80 else "R")
+    contig = contig_from_record(rec)
+    want = cuda_scan(guides, contig, 2, "NGG", device=cuda, site_mode="always")
+    assert {(i, 200 + 3500 * (i // 40)) for i in range(0, 600, 40)} <= set(
+        zip(want.spacer_idx.tolist(), want.pos.tolist()))
+    meshes = [make_mesh(devices=[cuda] * n) for n in (1, 4)] + [
+        make_mesh_2d(2, 2, devices=[cuda] * 4)]
+    if torch.cuda.device_count() > 1:
+        meshes.append(make_mesh())
+    for mesh in meshes:
+        for P_tile in (512, 16384):
+            before = scan_hits.launches
+            got = sharded_scan(guides, contig, 2, "NGG", mesh=mesh, P=P_tile)
+            assert scan_hits.launches == before + mesh.devices.size  # one per shard
+            for f in ("spacer_idx", "pos", "strand", "mismatches"):
+                assert np.array_equal(getattr(got, f), getattr(want, f)), (mesh.shape, P_tile, f)
+        libs = [guides[k::3] for k in range(3)]
+        for lib, hits in zip(libs, sharded_scan_many(libs, contig, 2, "NGG", mesh=mesh,
+                                                     P=16384, max_pending=2)):
+            solo = cuda_scan(lib, contig, 2, "NGG", device=cuda, site_mode="always")
+            for f in ("spacer_idx", "pos", "strand", "mismatches"):
+                assert np.array_equal(getattr(hits, f), getattr(solo, f)), (mesh.shape, f)
+
+
+@pytest.mark.gpu
+def test_cuda_design_matches_torch(cuda, monkeypatch, tmp_path):
+    """run_design through the cuda backend (its site engine, and the dense
+    one) gives the frame of the torch backend on the card."""
+    import pandas as pd
+
+    from barcoder_tpu.core.genome import Genome
+    from barcoder_tpu_torch.ops import cuda_scan as cs
+    from barcoder_tpu_torch.pipeline.design import DesignOptions, run_design
+
+    genome = Genome([contig_from_record(make_record(n=40_000, seed=24, n_genes=20,
+                                                    wrapped_gene=True))], source="synthetic")
+    opts = DesignOptions(mismatches=1, omit_offtargets=True, keep_top=3)
+    want, want_tr, _ = run_design(genome, "NGG", 20, opts, backend="torch")
+    for min_spacers in (1, 1 << 30):  # the site engine, then the dense one
+        cs._SITE_DEV_CACHE.clear()
+        cs._SITE_SEEN.clear()
+        # a fresh artifact directory: the first run's site table on disk
+        # would promote the second run's scan
+        monkeypatch.setenv("BARCODER_TPU_ARTIFACTS", str(tmp_path / str(min_spacers)))
+        old, cs._SITE_MODE_MIN_SPACERS = cs._SITE_MODE_MIN_SPACERS, min_spacers
+        try:
+            before = scan_hits.launches
+            got, got_tr, cands = run_design(genome, "NGG", 20, opts, backend="cuda")
+        finally:
+            cs._SITE_MODE_MIN_SPACERS = old
+        assert scan_hits.launches == before + 1
+        assert len(cs._SITE_DEV_CACHE) == (1 if min_spacers == 1 else 0)
+        pd.testing.assert_frame_equal(got_tr.table, want_tr.table)
+        pd.testing.assert_frame_equal(got, want)
+        assert len(cands) > 1000 and len(got) > 0

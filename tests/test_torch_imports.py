@@ -1,10 +1,11 @@
 """Import rules of the PyTorch port.
 
-* Importing ``barcoder_tpu_torch`` and running its ``targets`` CLI (also
-  with the ``sharded`` backend), its scaling harness and its experiment
-  entry points leaves ``jax`` and every module of the JAX package
-  ``barcoder_tpu`` out of ``sys.modules`` (checked in a fresh interpreter,
-  since this test process has imported both already).
+* Importing ``barcoder_tpu_torch`` and running its ``targets`` and
+  ``design`` CLIs, its sharded engine (``sharded_scan_contigs``,
+  ``sharded_scan_many``) on a CPU mesh, its scaling harness and its
+  experiment entry points leaves ``jax`` and every module of the JAX
+  package ``barcoder_tpu`` out of ``sys.modules`` (checked in a fresh
+  interpreter, since this test process has imported both already).
 * No import statement of the port or of ``chip_smoke.py``, at module level
   or inside a function, names ``barcoder_tpu``, ``jax`` or ``tests`` (whose
   helpers import the JAX package).
@@ -38,6 +39,9 @@ COPIES = {
     "pipeline/targets.py": "pipeline/targets.py",
     "ops/__init__.py": "ops/__init__.py",
     "__main__.py": "__main__.py",
+    "utils/artifacts.py": "utils/artifacts.py",
+    "utils/logger.py": "utils/logger.py",
+    "pipeline/design.py": "pipeline/design.py",
     **{f"core/{m}.py": f"core/{m}.py"
        for m in ("__init__", "encode", "genome", "pam", "coords", "locus")},
     **{f"seqio/{m}.py": f"seqio/{m}.py"
@@ -56,10 +60,17 @@ import barcoder_tpu_torch.ops.cuda_scan, barcoder_tpu_torch.ops.scan_hits
 import barcoder_tpu_torch.ops.ref_scan, barcoder_tpu_torch.cli.targets
 import barcoder_tpu_torch.utils.profiling
 from barcoder_tpu_torch.cli.main import main
-rc = main(["targets", sys.argv[1], sys.argv[2], "NGG", "0"])
+rc = main(["targets", sys.argv[1], sys.argv[2], "NGG", "0", "--backend", "torch"])
 sys.stdout.flush()
 print(json.dumps({"rc": rc, "jax": %s}), file=sys.stderr)
 """ % _LOADED
+
+
+def _probe_env(tmp_path) -> dict:
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BARCODER_TPU")}
+    env["PYTHONPATH"] = str(REPO)
+    env["BARCODER_TPU_ARTIFACTS"] = str(tmp_path / "artifacts")
+    return env
 
 
 def test_port_and_its_cli_never_import_jax(tmp_path):
@@ -69,12 +80,10 @@ def test_port_and_its_cli_never_import_jax(tmp_path):
     plant_guide(rec, g, 700, pam="TGG")
     write_genbank([rec], tmp_path / "genome.gb")
     (tmp_path / "lib.fasta").write_text(f">g1\n{g}\n>miss\n{'A' * 20}\n")
-    env = {k: v for k, v in os.environ.items() if not k.startswith("BARCODER_TPU")}
-    env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE, str(tmp_path / "lib.fasta"),
          str(tmp_path / "genome.gb")],
-        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=240,
+        capture_output=True, text=True, env=_probe_env(tmp_path), cwd=tmp_path, timeout=240,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     report = json.loads(proc.stderr.strip().splitlines()[-1])
@@ -87,44 +96,83 @@ def test_port_and_its_cli_never_import_jax(tmp_path):
 _SHARDED_PROBE = """
 import io, json, sys
 from contextlib import redirect_stdout
+import torch
 from barcoder_tpu_torch.cli.main import main
+from barcoder_tpu_torch.core.genome import Genome
+from barcoder_tpu_torch.ops.scan import scan_contigs
+from barcoder_tpu_torch.parallel.mesh import make_mesh
 from barcoder_tpu_torch.parallel.scaling import measure_scaling
-outs = []
-for backend in ("torch", "sharded"):
-    buf = io.StringIO()
-    with redirect_stdout(buf):
-        rc = main(["targets", sys.argv[1], sys.argv[2], "NGG", "0", "--backend", backend])
-    outs.append((rc, buf.getvalue()))
-report = measure_scaling(n_bp=4096, n_spacers=8, engine="both", device_counts=[1, 2], repeats=1)
-print(outs[1][1], end="")
-print(json.dumps({"rc": [rc for rc, _ in outs], "same": outs[0][1] == outs[1][1],
-                  "engines": [k for k in ("flagship", "blockmax") if k in report],
-                  "jax": %s}),
+from barcoder_tpu_torch.parallel.sharded_scan import sharded_scan_contigs, sharded_scan_many
+from barcoder_tpu_torch.seqio.library import BarcodeLibrary
+cpu = torch.device("cpu")
+buf = io.StringIO()
+with redirect_stdout(buf):
+    rc = main(["targets", sys.argv[1], sys.argv[2], "NGG", "0", "--backend", "torch"])
+print(buf.getvalue(), end="")
+contigs = Genome.load(sys.argv[2]).contigs
+spacers = [s for _, s in BarcodeLibrary.load(sys.argv[1]).entries]
+key = lambda h: list(zip(h.spacer_idx.tolist(), h.pos.tolist(), h.strand.tolist()))
+want = [key(h) for h in scan_contigs(spacers, contigs, 1, "NGG", backend="torch")]
+mesh = make_mesh(devices=[cpu] * 4)
+same = [key(h) for h in sharded_scan_contigs(spacers, contigs, 1, "NGG", mesh=mesh,
+                                             P=1024)] == want
+many = sharded_scan_many([spacers, spacers[:1]], contigs[0], 1, "NGG", mesh=mesh, P=1024)
+same = same and key(many[0]) == want[0]
+report = measure_scaling(n_bp=4096, n_spacers=8, engine="both", device_counts=[1, 2],
+                         repeats=1, devices=[cpu])
+print(json.dumps({"rc": rc, "same": same, "engines": [k for k in ("flagship", "blockmax")
+                                                       if k in report], "jax": %s}),
       file=sys.stderr)
 """ % _LOADED
 
 
 def test_sharded_backend_and_scaling_never_import_jax(tmp_path):
-    """The sharded backend through the CLI, and the scaling harness, in a
-    fresh interpreter: no jax, and the sharded TSV equals the torch one."""
+    """The sharded engine (sharded_scan_contigs, sharded_scan_many) on an
+    explicit CPU mesh, and the scaling harness on the CPU, in a fresh
+    interpreter: no jax, and the sharded Hits equal the torch backend's."""
     rng = np.random.default_rng(4)
     rec = make_record(n=5000, seed=4, n_genes=4)
     g = random_seq(20, rng)
     plant_guide(rec, g, 1900, pam="AGG", strand="R")
     write_genbank([rec], tmp_path / "genome.gb")
     (tmp_path / "lib.fasta").write_text(f">g1\n{g}\n>miss\n{'C' * 20}\n")
-    env = {k: v for k, v in os.environ.items() if not k.startswith("BARCODER_TPU")}
-    env["PYTHONPATH"] = str(REPO)
     proc = subprocess.run(
         [sys.executable, "-c", _SHARDED_PROBE, str(tmp_path / "lib.fasta"),
          str(tmp_path / "genome.gb")],
-        capture_output=True, text=True, env=env, cwd=tmp_path, timeout=240,
+        capture_output=True, text=True, env=_probe_env(tmp_path), cwd=tmp_path, timeout=240,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     report = json.loads(proc.stderr.strip().splitlines()[-1])
-    assert report == {"rc": [0, 0], "same": True, "engines": ["flagship", "blockmax"],
-                      "jax": []}
+    assert report == {"rc": 0, "same": True, "engines": ["flagship", "blockmax"], "jax": []}
     assert any(line.startswith(g) and "\t1900\t" in line for line in proc.stdout.splitlines())
+
+
+_DESIGN_PROBE = """
+import json, sys
+from barcoder_tpu_torch.cli.main import main
+rc = main(["design", sys.argv[1], "NGG", "20", "--backend", "torch", "--keep-top", "2"])
+sys.stdout.flush()
+print(json.dumps({"rc": rc, "jax": %s}), file=sys.stderr)
+""" % _LOADED
+
+
+def test_design_cli_never_imports_jax(tmp_path):
+    rec = make_record(n=6000, seed=24, n_genes=4)
+    write_genbank([rec], tmp_path / "genome.gb")
+    proc = subprocess.run(
+        [sys.executable, "-m", "barcoder_tpu_torch", "design", str(tmp_path / "genome.gb"),
+         "NGG", "20", "--backend", "torch"],
+        capture_output=True, text=True, env=_probe_env(tmp_path), cwd=tmp_path, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = proc.stdout.splitlines()
+    assert lines[0].startswith("spacer\t") and len(lines) > 1
+    proc = subprocess.run(
+        [sys.executable, "-c", _DESIGN_PROBE, str(tmp_path / "genome.gb")],
+        capture_output=True, text=True, env=_probe_env(tmp_path), cwd=tmp_path, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stderr.strip().splitlines()[-1]) == {"rc": 0, "jax": []}
 
 
 _EXPERIMENTS_PROBE = """

@@ -1,5 +1,6 @@
-"""The port's dense scan engine (barcoder_tpu_torch.ops.cuda_scan, on the
-CPU with the kernel's plain version) and its plain torch scan held against
+"""The port's dense scan engine (barcoder_tpu_torch.ops.cuda_scan with
+``site_mode="never"``, on the CPU with the kernel's plain version) and its
+plain torch scan held against
 the JAX package: ``pallas_scan(..., interpret=True, site_mode="never")``,
 ``jax_scan`` and ``oracle_scan``.
 
@@ -28,6 +29,7 @@ from barcoder_tpu_torch.ops.ref_scan import torch_scan
 from barcoder_tpu_torch.ops.types import STRAND_F, STRAND_R, Hits
 
 from .genomes import make_record, plant_guide, random_seq
+from .test_torch_site import site_isolation  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -52,7 +54,8 @@ def scan_all(spacers, contig, v, pam="", direction="downstream", pallas=True,
     returns the agreed Hits."""
     want = oracle_scan(spacers, contig, v, pam, direction)
     if spec_B is None:
-        got = cs.cuda_scan(spacers, contig, v, pam, direction, P=P, device=CPU)
+        got = cs.cuda_scan(spacers, contig, v, pam, direction, P=P, device=CPU,
+                           site_mode="never")
     else:
         prep = cs._QPrep(spacer_matrix(spacers), v, pam, direction, P, 512, CPU)
         prep.spec_B = spec_B
@@ -132,7 +135,7 @@ def test_linear_edges():
 def test_contig_shorter_than_spacer(topology):
     seq = "ACGTACGTAC"
     tiny = Contig(id="t", length=10, codes=encode(seq), seq=seq, topology=topology)
-    assert len(cs.cuda_scan(["A" * 20], tiny, 1, "NGG", P=P, device=CPU)) == 0
+    assert len(cs.cuda_scan(["A" * 20], tiny, 1, "NGG", P=P, device=CPU, site_mode="never")) == 0
     scan_all(["A" * 20], tiny, 1, "NGG")
 
 
@@ -168,9 +171,9 @@ def test_upstream_pam():
 
 def test_empty_library():
     contig = contig_from_record(make_record(n=3000, seed=70))
-    assert len(cs.cuda_scan([], contig, 1, "NGG", P=P, device=CPU)) == 0
+    assert len(cs.cuda_scan([], contig, 1, "NGG", P=P, device=CPU, site_mode="never")) == 0
     assert [len(h) for h in cs.cuda_scan_contigs([], [contig, contig], 1, "NGG", P=P,
-                                                 device=CPU)] == [0, 0]
+                                                 device=CPU, site_mode="never")] == [0, 0]
     assert len(torch_scan([], contig, 1, "NGG")) == 0
 
 
@@ -229,7 +232,7 @@ def test_multi_contig_shared_prep():
             for s, n, t in ((41, 4000, "circular"), (42, 3000, "linear"), (43, 1500, "circular"))]
     _, guides, _ = planted_case(41)
     contigs = [contig_from_record(r) for r in recs]
-    got = cs.cuda_scan_contigs(guides, contigs, 2, "NGG", P=P, device=CPU)
+    got = cs.cuda_scan_contigs(guides, contigs, 2, "NGG", P=P, device=CPU, site_mode="never")
     for h, c in zip(got, contigs):
         assert_same(h, oracle_scan(guides, c, 2, "NGG"))
 
@@ -318,5 +321,5 @@ def test_phase1_on_identical_state(L, pam):
         n_total += int(j_n)
     assert n_total > 0
     # the port's engine on this contig agrees with the JAX engine's Hits
-    assert_same(cs.cuda_scan(guides, contig, 2, pam, P=P, sub_width=128, device=CPU),
-                job.collect())
+    assert_same(cs.cuda_scan(guides, contig, 2, pam, P=P, sub_width=128, device=CPU,
+                             site_mode="never"), job.collect())

@@ -1,6 +1,8 @@
-"""The port's sharded dense engine (barcoder_tpu_torch.parallel.sharded_scan)
+"""The port's sharded engine (barcoder_tpu_torch.parallel.sharded_scan)
 held against the JAX package's sharded_scan (8 fake CPU devices, its pure-jnp
-phase 1) and the numpy oracle, on the cases of tests/test_parallel.py.
+phase 1) and the numpy oracle, on the cases of tests/test_parallel.py. Both
+engines send a scan with an informative PAM to their site engine under
+``site_mode="auto"``, and every other scan to the dense engine.
 
 Every comparison is EXACT: equal sets of (spacer, position, strand,
 mismatches) tuples. Each case runs the port on meshes of 1, 2 and 8 CPU
@@ -28,6 +30,7 @@ from barcoder_tpu_torch.parallel import sharded_scan as ss
 from barcoder_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 
 from .genomes import make_record, plant_guide, random_seq
+from .test_torch_site import site_isolation  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -197,7 +200,8 @@ def test_chunked_phase2_agrees(monkeypatch):
 
 def test_repeat_scan_ships_nothing():
     """The content-keyed shard caches: a repeat scan over one mesh builds no
-    state; another mesh or another PAM builds its own."""
+    state; another PAM builds its own genome-side state (the site codes of
+    the site engine) and reuses the library's."""
     rng = np.random.default_rng(14)
     rec = make_record(n=5000, seed=14)
     spacers = [random_seq(20, rng) for _ in range(3)]
@@ -210,6 +214,12 @@ def test_repeat_scan_ships_nothing():
     assert first == again and (1, 900, 0, 0) in again
     assert (ss._GENOME_SHARD_CACHE.misses, ss._Q_SHARD_CACHE.misses) == misses
     ss.sharded_scan(spacers, contig, 1, pam="NAG", mesh=mesh, P=256)
+    assert ss._GENOME_SHARD_CACHE.misses == misses[0] + 1  # the site codes only
+    assert ss._Q_SHARD_CACHE.misses == misses[1]
+    # the dense engine: its codes blocks do not depend on the PAM, its masks do
+    ss.sharded_scan(spacers, contig, 1, pam="NGG", mesh=mesh, P=256, site_mode="never")
+    misses = (ss._GENOME_SHARD_CACHE.misses, ss._Q_SHARD_CACHE.misses)
+    ss.sharded_scan(spacers, contig, 1, pam="NAG", mesh=mesh, P=256, site_mode="never")
     assert ss._GENOME_SHARD_CACHE.misses == misses[0] + 1  # the masks only
     assert ss._Q_SHARD_CACHE.misses == misses[1]
 
@@ -251,15 +261,21 @@ def test_bad_sub_width_raises_upfront():
                             mesh=port_mesh(8), P=2048, sub_width=600)
 
 
-def test_site_mode_always_raises():
-    """The sharded site engine is not ported; "always" says so, where the
-    JAX engine would take it (a PAM and spacers)."""
-    contig = contig_from_record(make_record(n=3000, seed=8))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ss.sharded_scan(["A" * 20], contig, 0, "NGG", mesh=port_mesh(2), P=256,
-                        site_mode="always")
-    # without a PAM the JAX engine stays dense too
-    ss.sharded_scan(["A" * 20], contig, 0, "", mesh=port_mesh(2), P=256, site_mode="always")
+def test_site_mode_always_raises(jax_mesh8):
+    """site_mode="always" takes the site engine, whose Hits equal the JAX
+    site engine's and the dense engine's; without a PAM it stays dense, as
+    in JAX; only an unknown site_mode raises."""
+    rng = np.random.default_rng(8)
+    rec = make_record(n=3000, seed=8)
+    spacers = [random_seq(20, rng) for _ in range(3)]
+    plant_guide(rec, spacers[0], 1100, pam="GGG", strand="R")
+    contig = contig_from_record(rec)
+    for pam in ("NGG", ""):
+        want = check_all(spacers, contig, 2, jax_mesh8, pam=pam, P=256, site_mode="always")
+        assert want == tuples(ss.sharded_scan(spacers, contig, 2, pam, mesh=port_mesh(2), P=256,
+                                              site_mode="never"))
+    assert (0, 1100, 1, 0) in check_all(spacers, contig, 0, jax_mesh8, pam="NGG", P=256,
+                                        site_mode="always")
     with pytest.raises(ValueError, match="site_mode"):
         ss.sharded_scan(["A" * 20], contig, 0, "NGG", mesh=port_mesh(2), site_mode="sites")
 
@@ -267,16 +283,15 @@ def test_site_mode_always_raises():
 def test_mesh_guards():
     """make_mesh must not truncate past the device count and make_mesh_2d
     must refuse a degenerate zero-genome grid, as in the JAX package."""
-    from barcoder_tpu_torch.parallel.mesh import local_devices
-
-    n = len(local_devices())
+    n = len(CPU8)
     with pytest.raises(ValueError, match="devices"):
-        make_mesh(n + 1)
+        make_mesh(n + 1, devices=CPU8)
     with pytest.raises(ValueError, match="devices"):
-        make_mesh_2d(n * 2)
+        make_mesh_2d(n * 2, devices=CPU8)
     with pytest.raises(ValueError, match="devices"):
         make_mesh_2d(9, devices=CPU8)
-    assert make_mesh(n).shape == {"genome": n}
+    assert make_mesh(n, devices=CPU8).shape == {"genome": n}
+    assert make_mesh(3, devices=CPU8).shape == {"genome": 3}
     m = make_mesh_2d(3, devices=CPU8)
     assert m.shape == {"library": 3, "genome": 2} and m.repeats_a_device()
     assert ss._mesh_dims(port_mesh(8)) == (1, 8) and ss._mesh_dims(m) == (3, 2)

@@ -25,6 +25,7 @@ from barcoder_tpu_torch.ops.cuda_scan import cuda_scan_contigs
 from barcoder_tpu_torch.pipeline import targets as port_targets
 
 from .genomes import genome_from_records, make_record, plant_guide, random_seq
+from .test_torch_site import site_isolation  # noqa: F401  (autouse)
 
 torch.set_num_threads(1)
 
@@ -156,9 +157,29 @@ def test_cuda_backend_raises_without_cuda(monkeypatch):
         port_scan.scan_contigs([s for _, s in entries[:2]],
                                genome_from_records(records).contigs, 0, "NGG",
                                backend="cuda")
-    assert port_scan.resolve_backend("auto") == "torch"
+    assert port_scan.resolve_backend("auto") == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert port_scan.resolve_backend("auto") == "cuda"
+
+
+@pytest.mark.parametrize("backend", ["auto", "sharded"])
+def test_auto_and_sharded_raise_without_cuda(cli_files, monkeypatch, capsys, backend):
+    """auto (the default) and sharded need a card; neither carries on on the
+    CPU, through the API or the CLI, and the error names the CPU backends."""
+    from barcoder_tpu_torch.ops import scan as port_scan
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    records, entries = build_inputs(multi_contig=False)
+    genome = genome_from_records(records)
+    with pytest.raises(RuntimeError, match="--backend torch"):
+        port_scan.scan_contigs([s for _, s in entries[:2]], genome.contigs, 0, "NGG",
+                               backend=backend)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_targets.run_targets(BarcodeLibrary(entries), genome, "NGG", 1, backend=backend)
+    args = [str(cli_files / "lib.fasta"), str(cli_files / "genome.gb"), "NGG", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_cli(args + ([] if backend == "auto" else ["--backend", backend]))
+    assert capsys.readouterr().out == ""
 
 
 def test_oracle_backend_frames_equal():
