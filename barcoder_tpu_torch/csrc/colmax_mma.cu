@@ -1,5 +1,5 @@
 // Column max of a 0/1 matrix product on the tensor cores, for NVIDIA Hopper
-// (sm_90a), in int8 and in bf16.
+// (sm_90a), in int8 and in bf16, with wgmma.
 //
 // Replaces experiments/int8_bench.py::kern, the TPU microbenchmark that put
 // the phase-1 product Q.G on the MXU in int8 (int8 x int8 -> int32) and in
@@ -13,80 +13,221 @@
 // (n_tiles, n_sblocks, P) array), so it does all of the product the TPU
 // kernel did, and the wrapper (ops/colmax_mma.py) takes the TPU's slice.
 //
-// Design: mma_tile.cuh's main loop with G streamed. One thread block owns
-// 256 columns of one tile, stages their K x 256 slab of G once, keeps it as
-// B fragments in registers, and streams every row of Q past it through a
-// cp.async ring; int8 runs mma.sync m16n8k32 (s8.s8.s32), bf16 runs
-// m16n8k16 (bf16.bf16.f32). Blocks walk (column chunk, tile) with the chunks
-// of one tile adjacent, and Q (at most a few MB) stays in L2.
+// Design: the main loop of scan_hits.cu (wgmma_tile.cuh), with G streamed.
+// A thread block owns 512 columns of one tile for its life and walks every
+// spacer block. Two consumer warpgroups run wgmma.mma_async m64n256k32
+// s32.s8.s8 (int8) or m64n256k16 f32.bf16.bf16 (bf16), both operands read
+// from shared memory by the tensor cores; a producer thread keeps a ring of
+// 64-row Q chunks full with one bulk copy each (8 stages of 8 KB in int8, 4
+// of 16 KB in bf16, beside a 64 KB and a 128 KB slab of G); the column max
+// over a block's rows comes from the accumulator registers, and every column
+// of out[t, s, :] is written as the block ends.
 //
-// What bounds it on the H100: the tensor cores' mma.sync rate and the
-// shared-memory reads of the A fragments (every warp reads each staged Q
-// chunk: 32 flops per byte of shared memory). The output is 4 bytes per
-// (block, column), small beside the 2 * BS_M * K operations behind it.
+//   * G arrives (K, P) with P contiguous, which is MN-major for wgmma's B
+//     operand. The int8 form takes B K-major only, so the block transposes
+//     its K x 512 slab while staging it: a thread reads 16 (int8) or 8 (bf16)
+//     rows of 4 bytes, transposes the bytes (or halves) with __byte_perm and
+//     stores each column's 16-byte K piece. bf16 is staged the same way, and
+//     its wgmma reads B K-major too (transpose flags 0), so one descriptor
+//     scheme serves both types: 32 bytes of K a step, 4 steps in int8, 8 in
+//     bf16.
+//   * Q is (S, 128) row-major: K-major, but not in core-matrix order. The
+//     wrapper lays it out as the 64-row chunks of wgmma_tile.cuh inside every
+//     call (a copy of a few MB, part of the kernel's time), padding a spacer
+//     block to a multiple of 64 rows by repeating its last row, which leaves
+//     a max as it is.
+//
+// What bounds it on the H100: the tensor rate of the type (2 * K operations
+// a pair); the output is 4 bytes per (block, column), small beside the
+// 2 * BS_M * K operations behind it.
 
-#include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
-using namespace mma_tile;
+using namespace wgmma_tile;
 
-template <class Acc>
-struct StoreColmax {
-  Acc* out;  // (n_tiles, n_sblocks, P)
-  int n_sblocks, P, t, p0;
-  __device__ __forceinline__ void block(int s, int c, Acc v0, Acc v1) {
-    const int p = p0 + c;  // even, and P is a multiple of 16
-    if (p < P) {
-      Acc* o = out + ((size_t)t * n_sblocks + s) * P + p;
-      o[0] = v0;
-      o[1] = v1;
-    }
-  }
+constexpr int K = 128;  // contraction depth (elements)
+
+struct S8 {
+  using Acc = int;
+  static constexpr int BYTES = 1, STAGES = 8;
+};
+struct Bf16 {
+  using Acc = float;
+  static constexpr int BYTES = 2, STAGES = 4;
 };
 
+template <class E> constexpr int KS = K * E::BYTES / 32;  // k-steps of 32 bytes
+template <class E> constexpr int G_BYTES = BN * KS<E> * 32;
+template <class E> constexpr int CHUNK_BYTES = CHUNK * KS<E> * 32;
+template <class E> constexpr int RED_OFF = G_BYTES<E> + E::STAGES * CHUNK_BYTES<E>;
+template <class E> constexpr int BAR_OFF = RED_OFF<E> + 2 * 4 * N * 4;
+template <class E> constexpr int SMEM = BAR_OFF<E> + 2 * E::STAGES * 8;
+
+// *dst = bits where on, as one predicated store (no branch beside a wgmma in
+// flight)
+__device__ __forceinline__ void store_if(void* dst, uint32_t bits, bool on) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b32 [%0], %1;\n}\n" ::
+                   "l"(dst), "r"(bits), "r"((int)on)
+               : "memory");
+}
+__device__ __forceinline__ uint32_t bits(int v) { return (uint32_t)v; }
+__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
+
+// The block's K x BN slab of one tile's G (row-major (K, P), P % 16 == 0;
+// columns >= P are zero), transposed into K-major core matrices: column n's
+// 16-byte K piece c at c * BN * 16 + n * 16.
 template <class E>
-__global__ void __launch_bounds__(THREADS, 2) colmax_mma_kernel(
-    const uint8_t* __restrict__ q,  // (n_sblocks * BS_M, 128)
-    const uint8_t* __restrict__ g,  // (n_tiles, 128, P)
-    typename E::Acc* __restrict__ out, int n_sblocks, int BS_M, int P) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int t = blockIdx.y;
-  const int p0 = blockIdx.x * NC;
-  BFrag<E> b;
-  load_b_streamed<E>(g + (size_t)t * K * P * E::BYTES, P, p0, smem, b);
-  StoreColmax<typename E::Acc> epi{out, n_sblocks, P, t, p0};
-  scan_blocks<E>(q, n_sblocks, BS_M, b, smem, epi);
+__device__ __forceinline__ void stage_g(const uint8_t* __restrict__ g_tile, int P, int p0,
+                                        uint8_t* smem) {
+  constexpr int PER = 4 / E::BYTES;    // columns in one 4-byte word of a row
+  constexpr int ROWS = 16 / E::BYTES;  // k values in a column's 16-byte piece
+  constexpr int WORDS = BN / PER;
+  for (int idx = threadIdx.x; idx < 2 * KS<E> * WORDS; idx += WG_THREADS) {
+    const int c = idx / WORDS, n = (idx % WORDS) * PER;
+    uint32_t w[ROWS];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k)
+      w[k] = p0 + n < P ? __ldg(reinterpret_cast<const uint32_t*>(
+                              g_tile + ((size_t)(c * ROWS + k) * P + p0 + n) * E::BYTES))
+                        : 0u;
+    uint4* dst = reinterpret_cast<uint4*>(smem + c * BN * 16 + n * 16);
+    if constexpr (E::BYTES == 1) {
+      // 4 x 4 byte transposes: byte j of rows 4m..4m+3 -> word m of column n + j
+      uint32_t col[4][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const uint32_t lo01 = __byte_perm(w[4 * m], w[4 * m + 1], 0x5140);
+        const uint32_t lo23 = __byte_perm(w[4 * m + 2], w[4 * m + 3], 0x5140);
+        const uint32_t hi01 = __byte_perm(w[4 * m], w[4 * m + 1], 0x7362);
+        const uint32_t hi23 = __byte_perm(w[4 * m + 2], w[4 * m + 3], 0x7362);
+        col[0][m] = __byte_perm(lo01, lo23, 0x5410);
+        col[1][m] = __byte_perm(lo01, lo23, 0x7632);
+        col[2][m] = __byte_perm(hi01, hi23, 0x5410);
+        col[3][m] = __byte_perm(hi01, hi23, 0x7632);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[j] = make_uint4(col[j][0], col[j][1], col[j][2], col[j][3]);
+    } else {
+      // halves of rows 2m, 2m + 1 -> word m of columns n and n + 1
+      dst[0] = make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
+                          __byte_perm(w[4], w[5], 0x5410), __byte_perm(w[6], w[7], 0x5410));
+      dst[1] = make_uint4(__byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632),
+                          __byte_perm(w[4], w[5], 0x7632), __byte_perm(w[6], w[7], 0x7632));
+    }
+  }
+}
+
+// qc: Q with its spacer blocks padded to BS64 rows (a multiple of 64), laid
+// out by the wrapper as chunks of 64 rows (wgmma_tile.cuh).
+template <class E>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    colmax_mma_kernel(const uint8_t* __restrict__ qc, const uint8_t* __restrict__ g,
+                      typename E::Acc* __restrict__ out, int n_sblocks, int BS64, int P,
+                      int n_chunks) {
+  using Acc = typename E::Acc;
+  constexpr int STAGES = E::STAGES;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int t = blockIdx.x / n_chunks;
+  const int p0 = (blockIdx.x % n_chunks) * BN;
+  const uint32_t g_s = smem_u32(smem);
+  const uint32_t q_s = g_s + G_BYTES<E>;
+  Acc* red = reinterpret_cast<Acc*>(smem + RED_OFF<E>);
+  const uint32_t full = g_s + BAR_OFF<E>, empty = full + STAGES * 8;
+
+  stage_g<E>(g + (size_t)t * K * P * E::BYTES, P, p0, smem);
+  ring_init(full, STAGES);
+  __syncthreads();
+
+  const int cpb = BS64 / CHUNK;
+  const int n = n_sblocks * cpb;
+  // the warp index read through a shuffle: the compiler then knows it is the
+  // same across the warp, so the role branches below are not divergent ones
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+
+  if (warp >= 8) {  // producer: one thread keeps the ring of Q chunks full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0)
+      for (int i = 0; i < n; ++i) {
+        const int slot = i % STAGES;
+        mbar_wait(empty + 8 * slot, ((i / STAGES) & 1) ^ 1);
+        bulk_load(q_s + slot * CHUNK_BYTES<E>, qc + (size_t)i * CHUNK_BYTES<E>, CHUNK_BYTES<E>,
+                  full + 8 * slot);
+      }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp / 4, w4 = warp % 4;
+    Acc* red_wg = red + wg * 4 * N;
+    const uint32_t g_wg = g_s + wg * (N / 8) * 128;
+
+    Acc run[RV];
+#pragma unroll
+    for (int i = 0; i < RV; ++i) run[i] = lowest(Acc());
+    Acc acc[N / 2];
+    auto issue = [&](int i) {
+      const int slot = i % STAGES;
+      mbar_wait(full + 8 * slot, (i / STAGES) & 1);
+      const uint32_t qa = q_s + slot * CHUNK_BYTES<E>;
+      wgmma_fence();  // after the row max's reads of acc
+#pragma unroll
+      for (int ks = 0; ks < KS<E>; ++ks)
+        wgmma_step(acc, smem_desc(qa + ks * 2048, 1024, 128),
+                   smem_desc(g_wg + ks * 2 * BN * 16, BN * 16, 128), ks > 0);
+      wgmma_commit();
+    };
+    issue(0);
+    for (int i = 0; i < n; ++i) {
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * (i % STAGES));
+      fold_rows(run, acc);
+      // the next product runs while this warpgroup writes a finished block
+      if (i + 1 < n) issue(i + 1);
+      if ((i + 1) % cpb) continue;
+      reduce_rows(run, red_wg, w4, lane);
+      wg_bar(1 + wg);
+      Acc* out_row = out + ((size_t)t * n_sblocks + i / cpb) * P;
+#pragma unroll
+      for (int h = 0; h < N / 128; ++h) {
+        const int c = h * 128 + threadIdx.x % 128;
+        const int p = p0 + wg * N + c;
+        store_if(out_row + p, bits(column_max(red_wg, c)), p < P);
+      }
+      wg_bar(1 + wg);
+    }
+  }
 }
 
 template <class E>
-int launch(const void* q, const void* g, void* out, int n_tiles, int n_sblocks, int BS_M,
+int launch(const void* qc, const void* g, void* out, int n_tiles, int n_sblocks, int BS_M,
            int P, cudaStream_t stream) {
-  const int smem = STAGE_G_BYTES<E> > RING_BYTES<E> ? STAGE_G_BYTES<E> : RING_BYTES<E>;
   cudaError_t err = cudaFuncSetAttribute(colmax_mma_kernel<E>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM<E>);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((P + NC - 1) / NC, n_tiles);
-  colmax_mma_kernel<E><<<grid, THREADS, smem, stream>>>(
-      static_cast<const uint8_t*>(q), static_cast<const uint8_t*>(g),
-      static_cast<typename E::Acc*>(out), n_sblocks, BS_M, P);
+  const int n_chunks = (P + BN - 1) / BN;
+  const int BS64 = (BS_M + CHUNK - 1) / CHUNK * CHUNK;
+  colmax_mma_kernel<E><<<n_tiles * n_chunks, WG_THREADS, SMEM<E>, stream>>>(
+      static_cast<const uint8_t*>(qc), static_cast<const uint8_t*>(g),
+      static_cast<typename E::Acc*>(out), n_sblocks, BS64, P, n_chunks);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch on `stream` and return cudaGetLastError(). The Python wrapper
-// checks what the kernel assumes: contiguous (S, 128) Q and (n_tiles, 128, P)
-// G of the same type, P % 16 == 0, BS_M % 16 == 0, n_tiles <= 65535.
-extern "C" int colmax_int8_launch(const void* q, const void* g, void* out, int n_tiles,
+// Launch on `stream` and return cudaGetLastError(). qc is Q as the wrapper
+// lays it out (see colmax_mma_kernel), g the contiguous (n_tiles, 128, P)
+// array of the same type, 16-byte aligned. The Python wrapper checks what the
+// kernel assumes: K = 128, P % 16 == 0, BS_M % 16 == 0.
+extern "C" int colmax_int8_launch(const void* qc, const void* g, void* out, int n_tiles,
                                   int n_sblocks, int BS_M, int P, void* stream) {
   if (n_tiles == 0 || n_sblocks == 0) return 0;
-  return launch<S8>(q, g, out, n_tiles, n_sblocks, BS_M, P, static_cast<cudaStream_t>(stream));
+  return launch<S8>(qc, g, out, n_tiles, n_sblocks, BS_M, P, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int colmax_bf16_launch(const void* q, const void* g, void* out, int n_tiles,
+extern "C" int colmax_bf16_launch(const void* qc, const void* g, void* out, int n_tiles,
                                   int n_sblocks, int BS_M, int P, void* stream) {
   if (n_tiles == 0 || n_sblocks == 0) return 0;
-  return launch<Bf16>(q, g, out, n_tiles, n_sblocks, BS_M, P,
+  return launch<Bf16>(qc, g, out, n_tiles, n_sblocks, BS_M, P,
                       static_cast<cudaStream_t>(stream));
 }

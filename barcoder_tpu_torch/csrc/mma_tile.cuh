@@ -1,15 +1,17 @@
-// Tensor-core main loop shared by colmax_mma.cu and phase1_mma.cu: the column
-// maxima of Q.G over the rows of every spacer block, for the 256 genome
-// columns that one thread block owns, with mma.sync on sm_90a.
+// Tensor-core main loop of phase1_mma.cu: the column maxima of Q.G over the
+// rows of every spacer block, for the 256 genome columns that one thread
+// block owns, with mma.sync on sm_90a. (colmax_mma.cu stood on it too until
+// it moved to wgmma, see wgmma_tile.cuh; the element type stays a template
+// parameter, bf16 its one instance.)
 //
-//   Q  (n_sblocks * BS_M, K = 128) row-major, bf16 or int8, in device memory;
+//   Q  (n_sblocks * BS_M, K = 128) row-major bf16, in device memory;
 //   G  (K, P) for one genome tile, held by the block as B fragments in
 //      registers for its whole life (the caller fills them, from a streamed G
 //      or from codes: see load_b_streamed and phase1_mma.cu).
 //
 // Layout of the work. A block of 8 warps owns NC = 256 columns of one tile;
 // warp w owns columns 32w..32w+31, as 4 n8 tiles whose B fragments for all
-// of K (8 k-steps in bf16, 4 in int8) stay in 64 (32) registers. The block
+// of K (8 k-steps) stay in 64 registers. The block
 // then walks every spacer block s in order, and every row of it, in chunks of
 // MR = 64 rows that a 3-stage cp.async ring brings from device memory into
 // shared memory (rows padded by 16 bytes, so the ldmatrix phases hit 8
@@ -28,14 +30,12 @@
 // sees every row of every spacer block for its columns.
 //
 // Exactness: the products are 0/1 (and the folded bias, 0 or -16384, times
-// 1); int32 accumulation is exact for any int8 inputs, and f32 accumulation
-// of integers below 2^24 is exact in any order.
+// 1), and f32 accumulation of integers below 2^24 is exact in any order.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -52,10 +52,6 @@ constexpr int STAGES = 3;
 struct Bf16 {
   using Acc = float;
   static constexpr int BYTES = 2;
-};
-struct S8 {
-  using Acc = int;
-  static constexpr int BYTES = 1;
 };
 
 template <class E> constexpr int KB = K * E::BYTES;       // bytes of a Q row
@@ -97,17 +93,7 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// D += A.B for one m16 x n8 tile: s8 x s8 -> s32, k = 32
-__device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float lowest(float) { return -INFINITY; }
-__device__ __forceinline__ int lowest(int) { return INT_MIN; }
 
 // The block-local column c (0..NC-1) and k-offset of register r of B
 // fragment (nt, ks) for this lane: mma's B operand is K x 8 "col", lane

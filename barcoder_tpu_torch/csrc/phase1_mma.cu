@@ -42,7 +42,8 @@
 // cannot change them.
 //
 // What bounds it on the H100: the tensor cores' mma.sync rate and the
-// shared-memory reads of the Q fragments, as in colmax_mma.cu. Hits are rare
+// shared-memory reads of the Q fragments (every warp reads each staged Q
+// chunk: 32 flops per byte of shared memory). Hits are rare
 // (a 20-nt spacer within 3 mismatches of a random window), so the count
 // epilogues cost a few shuffles and compares per column and block.
 

@@ -30,7 +30,9 @@
 // operations a second (132 SMs x 8,192 per clock x 1,980 MHz); the bytes
 // (Q, codes, bias, counts: ~63 MB) take ~19 us.
 //
-// The design, to run the tensor cores and hide the rest behind them:
+// The design, to run the tensor cores and hide the rest behind them (its
+// helpers and the loop's shape are wgmma_tile.cuh's, which scan_max.cu and
+// colmax_mma.cu share):
 //
 //   * a thread block owns 512 columns of one tile and walks every spacer
 //     block; consumer warpgroups 0 and 1 own 256 columns each and run
@@ -55,11 +57,11 @@
 //     branch runs with a wgmma in flight (ptxas would serialize them), so
 //     the block-end code is branch-free.
 
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <stdint.h>
+#include "wgmma_tile.cuh"
 
 namespace {
+
+using namespace wgmma_tile;
 
 // What the kernel reads besides Q.
 struct Args {
@@ -70,10 +72,6 @@ struct Args {
   long long tile_stride, code_stride;
   int n_sblocks, n_sb_pad8, L, P, SUB, bias_rows, fold, n_chunks;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // Four int8 rows k = 4j..4j+3 of G at column p, as one little-endian word:
 // the one-hot of base j (codes 4 = N and 5 = out of bounds set nothing), the
@@ -104,25 +102,6 @@ __device__ __forceinline__ void add_one_if(float* dst, bool hit) {
                : "memory");
 }
 
-// Keeps HALF of the column maxima run[0, 2 HALF) and takes their max with
-// the partner lane (lane ^ XOR), which keeps the other HALF: three such steps
-// (XOR = 16, 8, 4) leave each lane of a column group the max over the 8
-// row groups of the warp for its share of the columns.
-template <int HALF, int XOR, int R>
-__device__ __forceinline__ void halve(int (&run)[R], int lane) {
-  const bool upper = lane & XOR;
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const int keep = upper ? run[i + HALF] : run[i];
-    const int send = upper ? run[i] : run[i + HALF];
-    run[i] = max(keep, __shfl_xor_sync(0xffffffffu, send, XOR));
-  }
-}
-
-constexpr int WG_THREADS = 3 * 128;  // warpgroups 0, 1 consume; warpgroup 2 produces
-constexpr int N = 256;               // columns of one consumer warpgroup (wgmma n)
-constexpr int BN = 2 * N;            // columns of one thread block
-constexpr int CHUNK = 64;            // Q rows per wgmma (m64)
 constexpr int QSTAGES = 8;
 
 // shared memory for KS k-steps of 32: G, the Q ring, the per-warp column
@@ -133,121 +112,6 @@ template <int KS> constexpr int RED_OFF = G_BYTES<KS> + QSTAGES * CHUNK_BYTES<KS
 template <int KS> constexpr int BAR_OFF = RED_OFF<KS> + 2 * 4 * N * 4;
 template <int KS> constexpr int SMEM = BAR_OFF<KS> + 2 * QSTAGES * 8;
 
-// Shared-memory matrix descriptor, no swizzle: K-major core matrices of 8
-// rows x 16 bytes (128 contiguous bytes); lbo = byte distance of the two
-// core matrices along K, sbo = byte distance of consecutive 8-row groups.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// D (+)= A.B: A 64 x 32 int8 and B 32 x 256 int8 from shared memory, D 64 x
-// 256 int32 in the warpgroup's registers (128 per thread).
-__device__ __forceinline__ void wgmma_s8(int (&d)[128], uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
-        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
-        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
-        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
-        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
-        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
-        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
-        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
-        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]),
-        "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
-        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
-        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
-        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
-        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]),
-        "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
-        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
-        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
-        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
-        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
-        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
-        "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// keeps the compiler from moving reads of d across the asynchronous wgmma
-__device__ __forceinline__ void fence_regs(int (&d)[N / 2]) {
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-// Waits until the barrier's phase of this parity has completed. (No
-// watchdog trap in the loop: a conditional trap here makes ptxas serialize
-// every wgmma, which costs a quarter of the kernel's time.)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// one bulk copy of `bytes` from global to shared memory; the barrier's
-// transaction count covers it
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int bytes, uint32_t bar) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-__device__ __forceinline__ void wg_bar(int id) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
 // qc: Q cut to K = 32 KS int8 columns, its spacer blocks padded to BS64 rows
 // (a multiple of 64, by repeating a block's last row), and laid out by the
 // wrapper as chunks of 64 rows, each chunk (2 KS, 8, 8, 16): core matrix
@@ -256,8 +120,6 @@ __device__ __forceinline__ void wg_bar(int id) {
 template <int KS>
 __global__ void __launch_bounds__(WG_THREADS, 1)
     scan_hits_kernel(const uint8_t* __restrict__ qc, const __grid_constant__ Args a, int BS64) {
-  constexpr int RV = N / 4;    // running column maxima per thread
-  constexpr int VPT = N / 32;  // of them left per thread after the warp reduction
   extern __shared__ __align__(1024) uint8_t smem[];
   const int t = blockIdx.x / a.n_chunks;
   const int p0 = (blockIdx.x % a.n_chunks) * BN;
@@ -279,14 +141,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     v.w = g_word(tb, bb, a, p0 + n, 4 * c + 3);
     *reinterpret_cast<uint4*>(smem + c * BN * 16 + n * 16) = v;
   }
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < QSTAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 8);  // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // G visible to wgmma
+  ring_init(full, QSTAGES);  // and G visible to wgmma
   __syncthreads();
 
   const int cpb = BS64 / CHUNK;
@@ -308,7 +163,6 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
     const int wg = warp / 4, w4 = warp % 4;
-    const int g = lane / 4, qd = lane % 4;
     const float th = __ldg(a.thresh);
     int* red_wg = red + wg * 4 * N;
     const uint32_t g_wg = g_s + wg * (N / 8) * 128;
@@ -340,8 +194,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       wgmma_fence();  // after the row max's reads of acc
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks)
-        wgmma_s8(acc, smem_desc(qa + ks * 2048, 1024, 128),
-                 smem_desc(g_wg + ks * 2 * BN * 16, BN * 16, 128), ks > 0);
+        wgmma_step(acc, smem_desc(qa + ks * 2048, 1024, 128),
+                   smem_desc(g_wg + ks * 2 * BN * 16, BN * 16, 128), ks > 0);
       wgmma_commit();
     };
     issue(0);
@@ -349,39 +203,23 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       wgmma_wait_all();
       fence_regs(acc);
       if (lane == 0) mbar_arrive(empty + 8 * (i % QSTAGES));
-      // rows g and g + 8 of columns 8j + 2qd + e: acc[4j + e], acc[4j + 2 + e]
-#pragma unroll
-      for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          run[2 * j + e] = __vimax3_s32(run[2 * j + e], acc[4 * j + e], acc[4 * j + 2 + e]);
+      fold_rows(run, acc);
       // the next product runs while this warpgroup reduces a finished block
       if (i + 1 < n) issue(i + 1);
       if ((i + 1) % cpb) continue;
-      // spacer block i / cpb ends: its column maxima over the warp's rows by a
-      // halving butterfly (each step hands half of the columns to the partner
-      // lane), then over the 4 warps through shared memory
-      halve<RV / 2, 16>(run, lane);
-      halve<RV / 4, 8>(run, lane);
-      halve<RV / 8, 4>(run, lane);
-      // run[v] is now column 4 VPT g + 8 (v / 2) + 2 qd + v % 2 over the warp's rows
-#pragma unroll
-      for (int v = 0; v < VPT; ++v)
-        red_wg[w4 * N + 4 * VPT * g + 8 * (v >> 1) + 2 * qd + (v & 1)] = run[v];
+      // spacer block i / cpb ends: its column maxima over the warp's rows,
+      // then over the 4 warps through shared memory
+      reduce_rows(run, red_wg, w4, lane);
       wg_bar(1 + wg);
       // the threshold: a hit column adds one to out[t, s, its subtile]; the
       // additive bias (0 when folded) goes on after the max, exactly
       float* out_row = a.out + ((long long)t * a.n_sb_pad8 + i / cpb) * a.SUB;
 #pragma unroll
       for (int h = 0; h < N / 128; ++h) {
-        const int c = h * 128 + threadIdx.x % 128;
-        const int m =
-            max(max(red_wg[c], red_wg[N + c]), max(red_wg[2 * N + c], red_wg[3 * N + c]));
+        const int m = column_max(red_wg, h * 128 + threadIdx.x % 128);
         add_one_if(out_row + sub[h], live[h] & ((float)m + badd[h] >= th));
       }
       wg_bar(1 + wg);
-#pragma unroll
-      for (int v = 0; v < RV; ++v) run[v] = INT_MIN;
     }
   }
 }

@@ -1,5 +1,5 @@
-"""Column max of a 0/1 product in int8 (mma.sync s8 -> s32) against bf16
-(bf16 -> f32) on one CUDA card: the port of ``experiments/int8_bench.py``.
+"""Column max of a 0/1 product in int8 (wgmma s8 -> s32) against bf16
+(wgmma bf16 -> f32) on one CUDA card: the port of ``experiments/int8_bench.py``.
 
     python -m barcoder_tpu_torch.experiments.int8_bench [bf16] [int8]
 

@@ -12,9 +12,13 @@ rows; :func:`tpu_lanes` takes that slice from the full array, so the kernel
 here does the whole product and a test can hold every column.
 
 :func:`colmax` dispatches by device: a CUDA tensor launches the hand-written
-kernel in ``csrc/colmax_mma.cu`` (``mma.sync`` m16n8k32 s8 for int8,
-m16n8k16 bf16 for bf16; built by ``nvcc.py``), a CPU tensor takes
-:func:`colmax_reference`. Nothing falls back.
+kernel in ``csrc/colmax_mma.cu`` (``wgmma`` m64n256k32 s8 for int8,
+m64n256k16 bf16 for bf16, on the main loop it shares with ``scan_hits``
+through ``csrc/wgmma_tile.cuh``; built by ``nvcc.py``), a CPU tensor takes
+:func:`colmax_reference`. Nothing falls back. The kernel reads Q as 64-row
+chunks of wgmma core matrices, which the wrapper lays out inside every call
+(:func:`scan_hits.chunk_layout`), and transposes G to K-major itself while
+staging it.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import ctypes
 import torch
 
 from . import nvcc
+from .scan_hits import chunk_layout
 
 K = 128  # the kernel's contraction depth
 OUT_DTYPE = {torch.int8: torch.int32, torch.bfloat16: torch.float32}
@@ -97,16 +102,19 @@ def _launch(q, g, out_dtype, BS_M):
             raise ValueError(f"{name} must be contiguous on {dev}, got {x.device} "
                              f"(contiguous={x.is_contiguous()})")
     n_tiles, k, P = g.shape
-    if k != K or P % 16 or BS_M % 16 or n_tiles > 65535:
-        raise ValueError(f"the CUDA kernel takes K = {K}, P % 16 == 0, BS_M % 16 == 0 and at "
-                         f"most 65535 tiles; got K={k}, P={P}, BS_M={BS_M}, {n_tiles} tiles")
+    if k != K or P % 16 or BS_M % 16 or g.data_ptr() % 16:
+        raise ValueError(f"the CUDA kernel takes K = {K}, P % 16 == 0, BS_M % 16 == 0 and a "
+                         f"16-byte aligned g; got K={k}, P={P}, BS_M={BS_M}")
     n_sblocks = q.shape[0] // BS_M
     out = torch.empty((n_tiles, n_sblocks, P), dtype=out_dtype, device=dev)
+    if n_tiles == 0 or n_sblocks == 0:
+        return out
+    qc = chunk_layout(q[: n_sblocks * BS_M], BS_M)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     launch = nvcc.launcher("colmax_mma", _LAUNCHER[q.dtype], [vp] * 3 + [i32] * 4 + [vp])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(q.data_ptr(), g.data_ptr(), out.data_ptr(), n_tiles, n_sblocks, BS_M, P,
+        rc = launch(qc.data_ptr(), g.data_ptr(), out.data_ptr(), n_tiles, n_sblocks, BS_M, P,
                     stream)
     if rc != 0:
         raise RuntimeError(f"colmax_mma kernel launch failed with CUDA error {rc}")

@@ -188,23 +188,32 @@ def k_eff(L: int, bias_rows: int, fold_bias: bool) -> int:
     return _cdiv(4 * L + (bias_rows if fold_bias else 0), 32) * 32
 
 
+def chunk_layout(q: torch.Tensor, BS_M: int) -> torch.Tensor:
+    """Rows as the wgmma kernels read them (``csrc/wgmma_tile.cuh``): q is
+    (n_sblocks * BS_M, K) of 1- or 2-byte elements, K a multiple of 32 bytes.
+    Each spacer block is padded to a multiple of 64 rows by repeating its
+    last row (a repeated row leaves the block's column max as it is); every
+    64-row chunk is laid out as (K bytes / 16, 8, 8, 16 bytes), the 8-row x
+    16-byte core matrices of wgmma's K-major operand: core matrix (row
+    group g, K piece c) at byte c * 1024 + g * 128 of its chunk."""
+    K = q.shape[1]
+    per = 16 // q.element_size()  # elements in a 16-byte K piece
+    q = q.reshape(-1, BS_M, K)
+    bs64 = _cdiv(BS_M, 64) * 64
+    if bs64 != BS_M:
+        q = torch.cat([q, q[:, -1:].expand(q.shape[0], bs64 - BS_M, K)], dim=1)
+    return q.reshape(-1, 8, 8, K // per, per).permute(0, 3, 1, 2, 4).contiguous()
+
+
 def q_chunks(q_onehot: torch.Tensor, n_sblocks: int, BS_M: int, K_eff: int) -> torch.Tensor:
-    """Q as the kernel reads it: the first n_sblocks * BS_M one-hot rows cut
-    (or zero-padded) to K_eff int8 columns (columns past K_eff meet zero G
-    rows, on the TPU too, so they never change a score); each spacer block
-    padded to a multiple of 64 rows by repeating its last row (a repeated
-    row leaves the block's column max as it is); every 64-row chunk laid out
-    as (K_eff / 16, 8, 8, 16), the 8-row x 16-byte core matrices of wgmma's
-    K-major operand: core matrix (row group g, K piece c) at byte
-    c * 1024 + g * 128 of its chunk."""
+    """Q as the int8 kernels read it: the first n_sblocks * BS_M one-hot rows
+    cut (or zero-padded) to K_eff int8 columns (columns past K_eff meet zero
+    G rows, on the TPU too, so they never change a score), in
+    :func:`chunk_layout`."""
     q8 = q_onehot[: n_sblocks * BS_M, :K_eff].to(torch.int8)
     if q8.shape[1] < K_eff:
         q8 = torch.nn.functional.pad(q8, (0, K_eff - q8.shape[1]))
-    q = q8.reshape(n_sblocks, BS_M, K_eff)
-    bs64 = _cdiv(BS_M, 64) * 64
-    if bs64 != BS_M:
-        q = torch.cat([q, q[:, -1:].expand(n_sblocks, bs64 - BS_M, K_eff)], dim=1)
-    return q.reshape(-1, 8, 8, K_eff // 16, 16).permute(0, 3, 1, 2, 4).contiguous()
+    return chunk_layout(q8, BS_M)
 
 
 def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,

@@ -8,16 +8,21 @@ times beside the flagship engine.
 
 :func:`scan_block_max` keeps the JAX wrapper's argument list, output layout
 and ``ValueError``. A CUDA tensor launches the hand-written kernel in
-``csrc/scan_max.cu`` (built with ``nvcc`` for sm_90a at first use and loaded
-with ctypes, by ``nvcc.py``); a CPU tensor takes
-:func:`scan_block_max_reference`, the plain torch version with the same
-contract. Nothing falls back: a kernel that does not build or launch raises.
+``csrc/scan_max.cu`` (an int8 product on the tensor cores with ``wgmma``, on
+the main loop it shares with ``scan_hits`` through ``csrc/wgmma_tile.cuh``;
+built with ``nvcc`` for sm_90a at first use and loaded with ctypes, by
+``nvcc.py``); a CPU tensor takes :func:`scan_block_max_reference`, the plain
+torch version with the same contract. Nothing falls back: a kernel that does
+not build or launch raises.
 
 Both compute, for each (genome tile t, subtile u, spacer block s of BS = 128
 rows), the largest biased score over the block's rows and the subtile's
 columns. The scores are small integers and the bias values (0 and
 MASK_BIAS) are exact in bf16, so both versions agree bit for bit with the
-TPU kernel.
+TPU kernel; the kernel adds the bias to the int32 column max in f32, after
+the max and per row group (folded, only the rows with a nonzero column 4L
+carry it), which keeps the TPU's bf16 rounding of any other folded bias
+value too.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from .scan_hits import BS, MASK_BIAS, _cdiv, build_g_onehot
 # and checks that the main path went through the kernel)
 launches = 0
 
-_MAX_SUB = 8192  # subtile maxima live in shared memory: 32 KB at most
+_MAX_L = 32  # the kernel's deepest product: 4 k-steps of 32 int8 values
 
 
 def _check(q_onehot, tiles, bias_tiles, *, L, K, P, SUB, fold_bias):
@@ -100,6 +105,13 @@ def scan_block_max(q_onehot, tiles, bias_tiles, *, L, K, P, SUB=1, fold_bias=Fal
                    fold_bias=fold_bias)
 
 
+def k_eff(L: int) -> int:
+    """The kernel's contraction depth: the 4L one-hot rows rounded up to the
+    32 int8 values of one tensor-core k-step (96 at L = 20, 128 at L = 32).
+    The folded bias is no row of it: it goes on after the max."""
+    return _cdiv(4 * L, 32) * 32
+
+
 def _launch(q_onehot, tiles, bias_tiles, *, L, K, P, SUB, fold_bias):
     global launches
     _check(q_onehot, tiles, bias_tiles, L=L, K=K, P=P, SUB=SUB, fold_bias=fold_bias)
@@ -112,26 +124,30 @@ def _launch(q_onehot, tiles, bias_tiles, *, L, K, P, SUB, fold_bias):
                 f"{name} must be a contiguous {dtype} tensor on {dev}, got "
                 f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})"
             )
-    if L > 32 or SUB > _MAX_SUB:
-        raise ValueError(
-            f"the CUDA kernel takes L <= 32 and SUB <= {_MAX_SUB}; got L={L}, SUB={SUB}"
-        )
+    if L > _MAX_L:
+        raise ValueError(f"the CUDA kernel takes L <= {_MAX_L} (4L <= 128); got L={L}")
     n_sblocks = q_onehot.shape[0] // BS
-    if n_sblocks > 65535:
-        raise ValueError(f"{n_sblocks} spacer blocks exceed the grid's y limit")
     nsb_pad = _nsb_pad(n_sblocks)
     n_tiles = tiles.shape[0]
-    out = torch.full((n_tiles, SUB, nsb_pad), MASK_BIAS, dtype=torch.float32, device=dev)
-    vp, i32 = ctypes.c_void_p, ctypes.c_int
-    launch = nvcc.launcher("scan_max", "scan_block_max_launch", [vp] * 4 + [i32] * 9 + [vp])
+    # the order-preserving keys of the maxima, decoded to f32 in place
+    keys = torch.zeros((n_tiles, SUB, nsb_pad), dtype=torch.int32, device=dev)
+    # the kernel's own scratch: the units' rows as int8 chunks (a block
+    # holding both row groups is two units) and their block and group
+    K_eff = k_eff(L)
+    qc = torch.empty(((2 if fold_bias else 1) * n_sblocks * BS, K_eff), dtype=torch.uint8,
+                     device=dev)
+    meta = torch.zeros(1 + 2 * n_sblocks, dtype=torch.int32, device=dev)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    launch = nvcc.launcher("scan_max", "scan_block_max_launch",
+                           [vp] * 6 + [i32] * 8 + [i64, i32, vp])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = launch(
-            q_onehot.data_ptr(), tiles.data_ptr(), bias_tiles.data_ptr(),
-            out.data_ptr(), n_tiles, n_sblocks, nsb_pad, K, L, P, SUB,
-            tiles.shape[2], int(bool(fold_bias)), stream,
+            q_onehot.data_ptr(), qc.data_ptr(), meta.data_ptr(), tiles.data_ptr(),
+            bias_tiles.data_ptr(), keys.data_ptr(), n_tiles, n_sblocks, nsb_pad, K,
+            K_eff // 32, L, P, SUB, tiles.shape[2], int(bool(fold_bias)), stream,
         )
     if rc != 0:
         raise RuntimeError(f"scan_max kernel launch failed with CUDA error {rc}")
     launches += 1
-    return out
+    return keys.view(torch.float32)

@@ -113,7 +113,7 @@ def _pairs(path: str, contig, spacers, L: int) -> int:
 def blockmax_inputs(contig, spacers, L: int, device):
     """The block-max engine's inputs for the harness's workload: (q_oh
     (S_pad, K) bf16 one-hot rows on ``device``, scan codes, an all-allowed
-    start mask, K)."""
+    start mask, K); the two numpy arrays read-only."""
     from ..ops.cuda_scan import onehot_rows
     from ..ops.prep import build_scan_array, spacer_matrix
     from ..ops.scan_hits import BS, _cdiv
@@ -126,6 +126,9 @@ def blockmax_inputs(contig, spacers, L: int, device):
     q_dev = torch.from_numpy(q_oh).to(device, torch.bfloat16)
     scan = build_scan_array(contig, L).astype(np.int32)
     mask = np.ones(contig.length, dtype=np.int32)
+    # frozen: the engine's cache key hashes a read-only array once, not per call
+    scan.setflags(write=False)
+    mask.setflags(write=False)
     return q_dev, scan, mask, K
 
 

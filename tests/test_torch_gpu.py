@@ -230,20 +230,41 @@ def test_cuda_kernel_rejects_bad_inputs(cuda):
 def test_cuda_max_kernel_matches_plain(cuda, fold, L):
     """The block-max CUDA kernel against its plain torch version on the
     card, bit-equal, with and without fold, at SUB 1, 4 and 32 (subtiles
-    of 512, 128 and 16 columns) and 1-3 spacer blocks."""
-    for n_blocks, SUB in ((1, 1), (2, 4), (3, 32)):
-        q, codes, bias = make_max_case(L, fold, n_blocks, seed=L + n_blocks)
+    of 512, 128 and 16 columns) and 1-3 spacer blocks whose last holds 40
+    zero padding rows (folded: both row groups inside one 64-row chunk);
+    then with 168 padding rows (an all-padding block after a mixed one),
+    -0.0 in column 4L and bias values that bf16 rounds, at a ragged
+    P = 1,200 (three 512-column blocks, the last 176 wide) with subtiles of
+    1,200, 300 and 48 columns, and at P = 16,384 where 32 thread blocks feed
+    one SUB = 1 value."""
+    odd = np.array([0.3, -3.7, 1e-3, 2.0078125, -100.25], np.float32)
+    cases = [(n_blocks, SUB, P, 40, False) for n_blocks, SUB in ((1, 1), (2, 4), (3, 32))]
+    cases += [(3, SUB, 1200, 168, True) for SUB in (1, 4, 25)]
+    cases += [(2, SUB, 16384, 100, True) for SUB in (1, 32)]
+    for n_blocks, SUB, P_case, n_pad, odd_bias in cases:
+        q, codes, bias = make_max_case(L, fold, n_blocks, seed=L + n_blocks, P=P_case,
+                                       n_pad=n_pad)
+        if odd_bias:
+            rng = np.random.default_rng(SUB)
+            pick = rng.random(bias.shape) < 0.15
+            bias[pick] = rng.choice(odd, int(pick.sum()))
+            bias[-1] = -16384.0
+            if 4 * L < K:
+                q[-1, 4 * L] = -0.0
         args = (torch.from_numpy(q).to(cuda, torch.bfloat16), torch.from_numpy(codes).to(cuda),
                 torch.from_numpy(bias).to(cuda))
-        kw = dict(L=L, K=K, P=P, SUB=SUB, fold_bias=fold)
+        kw = dict(L=L, K=K, P=P_case, SUB=SUB, fold_bias=fold)
         before = scan_max.launches
         got = scan_max.scan_block_max(*args, **kw)
         assert scan_max.launches == before + 1
         want = scan_max.scan_block_max_reference(*args, **kw)
         assert scan_max.launches == before + 1
         torch.cuda.synchronize()
-        assert torch.equal(got, want)
+        assert torch.equal(got, want), (n_blocks, SUB, P_case)
         assert (want[:, :, :n_blocks] > -16384).any() and (want[:, :, n_blocks:] == -16384).all()
+        if SUB > 1:  # SUB = 1 is the max over the subtiles, on the same inputs
+            one = scan_max.scan_block_max(*args, **dict(kw, SUB=1))
+            assert torch.equal(one[:, 0], want.amax(dim=1))
 
 
 @pytest.mark.gpu
@@ -262,6 +283,13 @@ def test_cuda_max_kernel_rejects_bad_inputs(cuda):
         scan_max.scan_block_max(*bad, **kw)
     with pytest.raises(ValueError, match="spare G row"):
         scan_max.scan_block_max(*args, **dict(kw, L=32))
+    # the kernel's product is at most 4 k-steps of 32 deep: 4L <= 128
+    wide = torch.zeros((args[0].shape[0], 256), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="L <= 32"):
+        scan_max.scan_block_max(wide, *args[1:], **dict(kw, L=33, K=256, fold_bias=False))
+    # SUB is bounded by P alone now: 512 one-column subtiles
+    got = scan_max.scan_block_max(*args, **dict(kw, SUB=P))
+    assert torch.equal(got, scan_max.scan_block_max_reference(*args, **dict(kw, SUB=P)))
 
 
 @pytest.mark.gpu
@@ -381,10 +409,14 @@ def test_cuda_pipeline_matches_cpu(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("n_tiles,n_sblocks,BS_M,P", [(2, 3, 16, 256), (3, 5, 80, 400),
-                                                     (1, 2, 512, 16384)])
+                                                     (1, 2, 512, 16384), (2, 3, 64, 1024),
+                                                     (2, 4, 144, 528), (1, 1, 16, 16)])
 def test_cuda_colmax_matches_plain(cuda, dtype, n_tiles, n_sblocks, BS_M, P):
     """The tensor-core column max against its plain version, bit-equal over
-    every column, on 0/1 inputs and (int8) on the whole int8 range."""
+    every column, on 0/1 inputs and (int8) on the whole int8 range: blocks
+    of 16, 80 and 144 rows (padded to 64, 128 and 192 by repeating a row), of
+    64 (one chunk) and 512; tiles of one ragged 512-column slab (16, 256, 400
+    columns), of two (528, 1,024) and of 32."""
     q, g = int8_inputs(n_tiles, n_sblocks, BS_M=BS_M, K=K, P=P, seed=P + BS_M)
     cases = [int8_tensors(q, g, dtype, cuda)]
     if dtype == torch.int8:

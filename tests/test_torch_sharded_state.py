@@ -7,6 +7,9 @@ against the JAX package (8 fake CPU devices).
   depends on the codes its last columns read past the final block: the
   JAX ring hands the last shard shard 0's first codes, so the port must
   too (checked by showing that an N halo changes the answer).
+* its per-shard tiles and bias live in the genome cache: a repeat call on
+  the same arrays hits it and answers the same (still the JAX function's
+  answer on 8 fake devices), a changed mask or codes array misses.
 * ``shard_state``: the numpy state (codes blocks, ok masks, stacked fwd/rev
   Q one-hot) equals the arrays rebuilt with the JAX package's own prep
   functions and ``_host_onehot``, and the JAX phase 1 (the Pallas kernel in
@@ -109,6 +112,68 @@ def test_block_max_needs_the_ring_halo(workload):
     assert 8 * B - P >= contig.length + L  # that tile lies wholly in the padding
     assert np.array_equal(got[-1], with_ring[0].numpy())
     assert not np.array_equal(got[-1], n_halo[0].numpy())
+
+
+@pytest.mark.parametrize("shape", [(1, 8), (2, 4)])
+def test_block_max_cached_call_matches_jax(workload, shape):
+    """The second call on the same (read-only) arrays builds and ships
+    nothing, and still equals the JAX function on 8 fake devices."""
+    contig, _, q_oh, scan = workload
+    n_lib, n_gen = shape
+    mask = site_masks(contig, L, "NGG", "downstream")[0].astype(np.int32)
+    scan = scan.copy()
+    for arr in (scan, mask):
+        arr.setflags(write=False)
+    if n_lib == 1:
+        jm, pm = jax_mesh.make_mesh(n_gen), make_mesh(devices=CPU8[:n_gen])
+    else:
+        jm, pm = jax_mesh.make_mesh_2d(n_lib, n_gen), make_mesh_2d(n_lib, n_gen, devices=CPU8)
+    ss._GENOME_SHARD_CACHE.clear()
+    first = port_block_max(q_oh, scan, mask, pm)
+    built = ss.serving_cache_stats()["genome"]
+    assert (built["hits"], built["misses"], built["entries"]) == (0, 1, 1)
+    assert built["bytes_built"] == built["bytes_resident"] > 0
+    again = port_block_max(q_oh, scan, mask, pm)
+    stats = ss.serving_cache_stats()["genome"]
+    assert (stats["hits"], stats["misses"], stats["entries"]) == (1, 1, 1)
+    assert stats["bytes_built"] == built["bytes_built"]
+    want_max, want_totals = jax_block_max(jnp.asarray(q_oh, dtype=jnp.bfloat16), scan, mask,
+                                          jm, L=L, K=K, P=P)
+    for got_max, got_totals in (first, again):
+        assert np.array_equal(got_max, want_max) and np.array_equal(got_totals, want_totals)
+
+
+@pytest.mark.parametrize("changed", ["mask", "codes", "mesh", "tile"])
+def test_block_max_cache_misses_on_change(workload, changed):
+    """The key is the content of both arrays, the geometry and the mesh: a
+    flipped mask entry, a changed code, another mesh or another tile width
+    misses and gives the answer of a cold call; writable arrays are hashed
+    on every call, so a change in place is seen too."""
+    contig, _, q_oh, scan = workload
+    mask = np.ones(contig.length, np.int32)
+    scan = scan.copy()
+    mesh, P_tile = make_mesh(devices=CPU8[:2]), P
+    q = torch.from_numpy(q_oh).to(torch.bfloat16)
+    ss._GENOME_SHARD_CACHE.clear()
+    before = ss.sharded_scan_block_max(q, scan, mask, mesh, L=L, K=K, P=P_tile)
+    if changed == "mask":
+        mask[: contig.length // 2] = 0  # in place
+    elif changed == "codes":
+        scan[: contig.length // 2] = 4  # N
+    elif changed == "mesh":
+        mesh = make_mesh(devices=CPU8[:4])
+    else:
+        P_tile = 512
+    got = ss.sharded_scan_block_max(q, scan, mask, mesh, L=L, K=K, P=P_tile)
+    stats = ss.serving_cache_stats()["genome"]
+    assert (stats["hits"], stats["misses"], stats["entries"]) == (0, 2, 2)
+    ss._GENOME_SHARD_CACHE.clear()
+    cold = ss.sharded_scan_block_max(q, scan, mask, mesh, L=L, K=K, P=P_tile)
+    assert np.array_equal(got[0], cold[0]) and np.array_equal(got[1], cold[1])
+    if changed in ("mask", "codes"):  # the first tiles lose their scores
+        assert before[0][0].max() >= L // 2 and got[0][0].max() <= 0
+    elif changed == "mesh":
+        assert np.array_equal(got[0].max(axis=0), before[0].max(axis=0))
 
 
 def jax_layout(spacers, contig, pam, n_lib, n_gen):
