@@ -65,59 +65,8 @@ template <class E> constexpr int RED_OFF = G_BYTES<E> + E::STAGES * CHUNK_BYTES<
 template <class E> constexpr int BAR_OFF = RED_OFF<E> + 2 * 4 * N * 4;
 template <class E> constexpr int SMEM = BAR_OFF<E> + 2 * E::STAGES * 8;
 
-// *dst = bits where on, as one predicated store (no branch beside a wgmma in
-// flight)
-__device__ __forceinline__ void store_if(void* dst, uint32_t bits, bool on) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b32 [%0], %1;\n}\n" ::
-                   "l"(dst), "r"(bits), "r"((int)on)
-               : "memory");
-}
 __device__ __forceinline__ uint32_t bits(int v) { return (uint32_t)v; }
 __device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
-
-// The block's K x BN slab of one tile's G (row-major (K, P), P % 16 == 0;
-// columns >= P are zero), transposed into K-major core matrices: column n's
-// 16-byte K piece c at c * BN * 16 + n * 16.
-template <class E>
-__device__ __forceinline__ void stage_g(const uint8_t* __restrict__ g_tile, int P, int p0,
-                                        uint8_t* smem) {
-  constexpr int PER = 4 / E::BYTES;    // columns in one 4-byte word of a row
-  constexpr int ROWS = 16 / E::BYTES;  // k values in a column's 16-byte piece
-  constexpr int WORDS = BN / PER;
-  for (int idx = threadIdx.x; idx < 2 * KS<E> * WORDS; idx += WG_THREADS) {
-    const int c = idx / WORDS, n = (idx % WORDS) * PER;
-    uint32_t w[ROWS];
-#pragma unroll
-    for (int k = 0; k < ROWS; ++k)
-      w[k] = p0 + n < P ? __ldg(reinterpret_cast<const uint32_t*>(
-                              g_tile + ((size_t)(c * ROWS + k) * P + p0 + n) * E::BYTES))
-                        : 0u;
-    uint4* dst = reinterpret_cast<uint4*>(smem + c * BN * 16 + n * 16);
-    if constexpr (E::BYTES == 1) {
-      // 4 x 4 byte transposes: byte j of rows 4m..4m+3 -> word m of column n + j
-      uint32_t col[4][4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const uint32_t lo01 = __byte_perm(w[4 * m], w[4 * m + 1], 0x5140);
-        const uint32_t lo23 = __byte_perm(w[4 * m + 2], w[4 * m + 3], 0x5140);
-        const uint32_t hi01 = __byte_perm(w[4 * m], w[4 * m + 1], 0x7362);
-        const uint32_t hi23 = __byte_perm(w[4 * m + 2], w[4 * m + 3], 0x7362);
-        col[0][m] = __byte_perm(lo01, lo23, 0x5410);
-        col[1][m] = __byte_perm(lo01, lo23, 0x7632);
-        col[2][m] = __byte_perm(hi01, hi23, 0x5410);
-        col[3][m] = __byte_perm(hi01, hi23, 0x7632);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dst[j] = make_uint4(col[j][0], col[j][1], col[j][2], col[j][3]);
-    } else {
-      // halves of rows 2m, 2m + 1 -> word m of columns n and n + 1
-      dst[0] = make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
-                          __byte_perm(w[4], w[5], 0x5410), __byte_perm(w[6], w[7], 0x5410));
-      dst[1] = make_uint4(__byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632),
-                          __byte_perm(w[4], w[5], 0x7632), __byte_perm(w[6], w[7], 0x7632));
-    }
-  }
-}
 
 // qc: Q with its spacer blocks padded to BS64 rows (a multiple of 64), laid
 // out by the wrapper as chunks of 64 rows (wgmma_tile.cuh).
@@ -136,7 +85,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   Acc* red = reinterpret_cast<Acc*>(smem + RED_OFF<E>);
   const uint32_t full = g_s + BAR_OFF<E>, empty = full + STAGES * 8;
 
-  stage_g<E>(g + (size_t)t * K * P * E::BYTES, P, p0, smem);
+  stage_g<E::BYTES, KS<E>>(g + (size_t)t * K * P * E::BYTES, P, p0, smem);
   ring_init(full, STAGES);
   __syncthreads();
 

@@ -31,8 +31,8 @@
 // (Q, codes, bias, counts: ~63 MB) take ~19 us.
 //
 // The design, to run the tensor cores and hide the rest behind them (its
-// helpers and the loop's shape are wgmma_tile.cuh's, which scan_max.cu and
-// colmax_mma.cu share):
+// helpers and the loop's shape are wgmma_tile.cuh's, which scan_max.cu,
+// colmax_mma.cu and phase1_mma.cu share):
 //
 //   * a thread block owns 512 columns of one tile and walks every spacer
 //     block; consumer warpgroups 0 and 1 own 256 columns each and run
@@ -90,16 +90,6 @@ __device__ __forceinline__ uint32_t g_word(const int32_t* __restrict__ tb,
     return w;
   }
   return 0u;
-}
-
-// *dst += 1 where hit, as one predicated reduction: no branch, so the code
-// around a wgmma in flight stays uniform (a divergent branch there makes
-// ptxas serialize the wgmma). Counts are small integers: the order of the
-// adds cannot change them.
-__device__ __forceinline__ void add_one_if(float* dst, bool hit) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p red.global.add.f32 [%0], %2;\n}\n" ::
-                   "l"(dst), "r"((int)hit), "f"(1.0f)
-               : "memory");
 }
 
 constexpr int QSTAGES = 8;

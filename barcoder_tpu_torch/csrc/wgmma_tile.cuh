@@ -1,13 +1,15 @@
 // What the port's wgmma kernels share (scan_hits.cu, scan_max.cu,
-// colmax_mma.cu), for NVIDIA Hopper (sm_90a): the column maxima of a product
-// Q.G over blocks of Q's rows, for the 512 columns that one thread block owns.
+// colmax_mma.cu, phase1_mma.cu), for NVIDIA Hopper (sm_90a): the column
+// maxima of a product Q.G over blocks of Q's rows, for the 512 columns that
+// one thread block owns.
 //
 // The shape of every one of them:
 //
 //   * a thread block of three warpgroups owns BN = 512 columns of one tile for
 //     its life. It stages G for those columns once in shared memory, as
 //     K-major core matrices of 8 columns x 16 bytes (no swizzle): column n's
-//     16-byte K piece c at c * BN * 16 + n * 16;
+//     16-byte K piece c at c * BN * 16 + n * 16 (built there from codes, or
+//     transposed from a row-major G by stage_g);
 //   * warpgroup 2 produces: one thread keeps a ring of 64-row chunks of Q full
 //     with one cp.async.bulk each, on mbarriers (its registers go to the
 //     consumers with setmaxnreg). The Python wrapper lays Q out as those
@@ -149,6 +151,73 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int byt
 }
 __device__ __forceinline__ void wg_bar(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+// *dst = bits where on, as one predicated store (no branch beside a wgmma in
+// flight)
+__device__ __forceinline__ void store_if(void* dst, uint32_t bits, bool on) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b32 [%0], %1;\n}\n" ::
+                   "l"(dst), "r"(bits), "r"((int)on)
+               : "memory");
+}
+// the same for one byte: the low byte of v
+__device__ __forceinline__ void store_u8_if(void* dst, uint32_t v, bool on) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.u8 [%0], %1;\n}\n" ::
+                   "l"(dst), "r"(v), "r"((int)on)
+               : "memory");
+}
+// *dst += 1 where hit, as one predicated reduction. Counts are small
+// integers: the order of the adds cannot change them.
+__device__ __forceinline__ void add_one_if(float* dst, bool hit) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p red.global.add.f32 [%0], %2;\n}\n" ::
+                   "l"(dst), "r"((int)hit), "f"(1.0f)
+               : "memory");
+}
+
+// The block's K x BN slab of one tile's G, row-major (K, P) of BYTES-byte
+// elements (K = 16 KS / BYTES, P even; columns >= P are zero), transposed
+// into K-major core matrices: column n's 16-byte K piece c at c * BN * 16 +
+// n * 16. A thread reads 16 / BYTES rows of one 4-byte word and transposes
+// the bytes (int8) or halves (bf16) with __byte_perm.
+template <int BYTES, int KS>
+__device__ __forceinline__ void stage_g(const uint8_t* __restrict__ g_tile, int P, int p0,
+                                        uint8_t* smem) {
+  constexpr int PER = 4 / BYTES;    // columns in one 4-byte word of a row
+  constexpr int ROWS = 16 / BYTES;  // k values in a column's 16-byte piece
+  constexpr int WORDS = BN / PER;
+  for (int idx = threadIdx.x; idx < 2 * KS * WORDS; idx += WG_THREADS) {
+    const int c = idx / WORDS, n = (idx % WORDS) * PER;
+    uint32_t w[ROWS];
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k)
+      w[k] = p0 + n < P ? __ldg(reinterpret_cast<const uint32_t*>(
+                              g_tile + ((size_t)(c * ROWS + k) * P + p0 + n) * BYTES))
+                        : 0u;
+    uint4* dst = reinterpret_cast<uint4*>(smem + c * BN * 16 + n * 16);
+    if constexpr (BYTES == 1) {
+      // 4 x 4 byte transposes: byte j of rows 4m..4m+3 -> word m of column n + j
+      uint32_t col[4][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const uint32_t lo01 = __byte_perm(w[4 * m], w[4 * m + 1], 0x5140);
+        const uint32_t lo23 = __byte_perm(w[4 * m + 2], w[4 * m + 3], 0x5140);
+        const uint32_t hi01 = __byte_perm(w[4 * m], w[4 * m + 1], 0x7362);
+        const uint32_t hi23 = __byte_perm(w[4 * m + 2], w[4 * m + 3], 0x7362);
+        col[0][m] = __byte_perm(lo01, lo23, 0x5410);
+        col[1][m] = __byte_perm(lo01, lo23, 0x7632);
+        col[2][m] = __byte_perm(hi01, hi23, 0x5410);
+        col[3][m] = __byte_perm(hi01, hi23, 0x7632);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[j] = make_uint4(col[j][0], col[j][1], col[j][2], col[j][3]);
+    } else {
+      // halves of rows 2m, 2m + 1 -> word m of columns n and n + 1
+      dst[0] = make_uint4(__byte_perm(w[0], w[1], 0x5410), __byte_perm(w[2], w[3], 0x5410),
+                          __byte_perm(w[4], w[5], 0x5410), __byte_perm(w[6], w[7], 0x5410));
+      dst[1] = make_uint4(__byte_perm(w[0], w[1], 0x7632), __byte_perm(w[2], w[3], 0x7632),
+                          __byte_perm(w[4], w[5], 0x7632), __byte_perm(w[6], w[7], 0x7632));
+    }
+  }
 }
 
 // The full and the empty barriers of a ring of `stages` chunks, at `full` and

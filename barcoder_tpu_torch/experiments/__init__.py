@@ -99,6 +99,20 @@ def plant_hits(q, tiles, *, L: int, P: int, share: float = 0.25, seed: int = 0) 
     q[rng.random(q.shape[0]) < 0.05, 4 * L + 1] = 1.0
 
 
+def round_bias(bias, *, share: float = 0.3, seed: int = 0) -> None:
+    """Give phase1_inputs' bias values that bf16 rounds, in place: on a
+    ``share`` of the columns both rows become random values of magnitude
+    0.5 to 8 with a random sign (bf16 keeps 8 significant bits of them, so
+    every score stays an exact f32), and on another ``share`` row 0 (G row
+    4L) becomes -0.0."""
+    rng = np.random.default_rng(seed)
+    n_tiles, rows, P = bias.shape
+    pick = rng.random((n_tiles, P))
+    mag = rng.uniform(0.5, 8.0, (n_tiles, rows, P)) * rng.choice([-1.0, 1.0], (n_tiles, rows, P))
+    bias[:] = np.where((pick < share)[:, None, :], mag, bias)
+    bias[:, 0][(pick >= share) & (pick < 2 * share)] = -0.0
+
+
 def phase1_tensors(thresh, q, tiles, bias, device):
     """phase1_inputs' arrays as the kernels take them on ``device``: f32,
     bf16, int32, f32."""

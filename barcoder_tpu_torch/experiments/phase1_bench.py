@@ -2,11 +2,13 @@
 epilogue, on one CUDA card: the port of ``experiments/phase1_bench.py``.
 
 The "real" row times the port's ``scan_hits.scan_block_hits`` (the int8
-``wgmma`` kernel of the main path); the rest time the bf16 ``mma.sync``
-kernel of ``ops/phase1_variants.py`` with G built in the kernel and the
-epilogue cut down: (a) the column maxima, (b) the hit bits, (c) hit counts
-batched over 8 spacer blocks, (d) hit counts per block. So the two
-tensor-core formulations stand side by side on the same inputs.
+``wgmma`` kernel of the main path); the rest time the bf16 ``wgmma`` kernel
+of ``ops/phase1_variants.py`` on the same main loop, with G built in the
+kernel and the epilogue cut down: (a) the column maxima, (b) the hit bits,
+(c) hit counts batched over 8 spacer blocks, (d) hit counts per block. So
+int8 and bf16 stand side by side on one loop, the same inputs and the same
+depth (both issue G's 4L + 2 rows rounded up to 32: 96 here): the real row
+against (d) is what int8 gains.
 
     python -m barcoder_tpu_torch.experiments.phase1_bench
 

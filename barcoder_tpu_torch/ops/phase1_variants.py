@@ -29,12 +29,24 @@ of the TPU kernels that both versions here keep. For bench a and b the
 kernel writes every column ((n_tiles, n_sblocks, P), :func:`bench_full`)
 and :func:`bench` takes the TPU's lanes.
 
-A CUDA tensor launches ``csrc/phase1_mma.cu`` (bf16 ``mma.sync``; built by
-``nvcc.py``); a CPU tensor takes the plain version
-(:func:`ablate_reference`, :func:`bench_full_reference`), built from
+A CUDA tensor launches ``csrc/phase1_mma.cu`` (bf16 ``wgmma`` on the main
+loop of ``csrc/wgmma_tile.cuh``, which the other kernels share; built by
+``nvcc.py``); a CPU tensor takes the plain version (:func:`ablate_reference`,
+:func:`bench_full_reference`), built from
 ``scan_hits.scan_block_hits_reference`` and ``colmax_mma.colmax_reference``.
-Everything is exact: the scores are small integers and the bias values (0
-and -16384) are exact in bf16.
+Nothing falls back. The kernel reads Q as 64-row chunks of wgmma core
+matrices, which the wrapper lays out inside every call
+(:func:`scan_hits.chunk_layout`), and builds G in shared memory in the layout
+that :func:`g_pieces` states (or transposes ``g_all`` into it). The built
+variants' G is zero past row 4L + 1, so their kernel issues only the depth
+:func:`k_eff` and reads only Q's first k_eff(L) columns; the streamed ones
+take any g_all and issue K = 128.
+
+The two agree bit for bit for a finite Q whenever every partial sum of a
+score is an exact f32, whatever the order of the sums: the one-hot scores
+are small integers, and the bias rows hold bf16(bias), which holds 0 and
+-16384 exactly and rounds any other value the same way on both sides; a
+finite Q value past k_eff(L) meets a zero G row and adds 0.
 """
 
 from __future__ import annotations
@@ -44,11 +56,14 @@ import ctypes
 import torch
 
 from . import colmax_mma, nvcc, scan_hits
+from .scan_hits import chunk_layout
 
 ABLATE = {"A": ("built", "count"), "B": ("streamed", "count"),
           "C": ("built", "count8"), "D": ("streamed", "count8")}
 BENCH = {"a": "colmax", "b": "hit", "c": "count8", "d": "count"}
 EPILOGUE = {"count": 0, "count8": 1, "colmax": 2, "hit": 3}
+
+BN = 512  # columns of one thread block of the kernel
 
 # kernel launches since the counters were last reset, per TPU kernel ported
 launches = {"phase1_ablate": 0, "phase1_epilogue": 0}
@@ -56,6 +71,13 @@ launches = {"phase1_ablate": 0, "phase1_epilogue": 0}
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def k_eff(L: int) -> int:
+    """The depth the built variants' kernel issues: G's 4L + 2 nonzero rows
+    rounded up to 32 (two bf16 k-steps of 16, so the kernel has four depths,
+    32 to 128; 96 at L = 20, the int8 ``scan_hits.k_eff`` there too)."""
+    return _cdiv(4 * L + 2, 32) * 32
 
 
 def build_g_all(tiles, bias, *, L: int, K: int, P: int):
@@ -73,6 +95,28 @@ def build_g_all(tiles, bias, *, L: int, K: int, P: int):
     g[:, : 4 * L] = (windows[:, :, None, :] == base[:, None]).reshape(n_tiles, 4 * L, P)
     g[:, 4 * L : 4 * L + 2] = bias.to(torch.bfloat16)
     return g
+
+
+def g_pieces(codes, bias, *, L: int, P: int, p0: int):
+    """One thread block's G as the built variants write it to shared
+    memory: columns p0 .. p0 + 511 of one tile, from its codes (W,) int32
+    and bias (2, P) f32, as (k_eff(L) / 8, 512, 8) bfloat16 K-major pieces,
+    [c, n, e] = G[8c + e, p0 + n]. Piece c holds bases j = 2c and 2c + 1,
+    four rows each: 1.0 in row 4j + b where code[p + j] == b (a code at or
+    past W reads as N and sets no row), bf16(bias[i, p]) in row 4L + i,
+    zeros elsewhere and in every column >= P."""
+    K, W = k_eff(L), codes.shape[-1]
+    dev = codes.device
+    p = p0 + torch.arange(BN, device=dev)
+    j = torch.arange(K // 4, device=dev)[:, None]  # bases, (K / 4, 1)
+    idx = p + j
+    x = torch.where(idx < W, codes[idx.clamp(max=W - 1)], 4)
+    one = (x[..., None] == torch.arange(4, device=dev)) & (j < L)[..., None]
+    halves = torch.where(one, 0x3F80, 0).to(torch.int16)  # (K / 4, BN, 4) bf16 bits
+    halves[L, :, :2] = bias[:, p.clamp(max=P - 1)].to(torch.bfloat16).view(torch.int16).T
+    halves[:, p >= P] = 0
+    return (halves.reshape(K // 8, 2, BN, 4).permute(0, 2, 1, 3).reshape(K // 8, BN, 8)
+            .contiguous().view(torch.bfloat16))
 
 
 def _counts(hit, SUB: int, batched: bool):
@@ -147,10 +191,8 @@ def ablate(variant, thresh, q, tiles, bias, g_all, *, L, K, P, SUB, BS_M):
         return ablate_reference(variant, thresh, q, tiles, bias, g_all, L=L, K=K, P=P,
                                 SUB=SUB, BS_M=BS_M)
     source, epi = ABLATE[variant]
-    out = _launch(source, epi, thresh, q, tiles, bias, g_all, L=L, K=K, P=P, SUB=SUB,
-                  BS_M=BS_M)
-    launches["phase1_ablate"] += 1
-    return out
+    return _launch("phase1_ablate", source, epi, thresh, q, tiles, bias, g_all, L=L, K=K, P=P,
+                   SUB=SUB, BS_M=BS_M)
 
 
 def bench_full(variant, thresh, q, tiles, bias, *, L, K, P, SUB, BS_M):
@@ -159,10 +201,8 @@ def bench_full(variant, thresh, q, tiles, bias, *, L, K, P, SUB, BS_M):
     if q.device.type == "cpu":
         return bench_full_reference(variant, thresh, q, tiles, bias, L=L, K=K, P=P, SUB=SUB,
                                     BS_M=BS_M)
-    out = _launch("built", BENCH[variant], thresh, q, tiles, bias, None, L=L, K=K, P=P,
-                  SUB=SUB, BS_M=BS_M)
-    launches["phase1_epilogue"] += 1
-    return out
+    return _launch("phase1_epilogue", "built", BENCH[variant], thresh, q, tiles, bias, None,
+                   L=L, K=K, P=P, SUB=SUB, BS_M=BS_M)
 
 
 def bench(variant, thresh, q, tiles, bias, *, L, K, P, SUB, BS_M):
@@ -175,7 +215,7 @@ def bench(variant, thresh, q, tiles, bias, *, L, K, P, SUB, BS_M):
     return full
 
 
-def _launch(source, epi, thresh, q, tiles, bias, g_all, *, L, K, P, SUB, BS_M):
+def _launch(counter, source, epi, thresh, q, tiles, bias, g_all, *, L, K, P, SUB, BS_M):
     _check(thresh, q, tiles, bias, g_all, source=source, L=L, K=K, P=P, SUB=SUB, BS_M=BS_M)
     dev = q.device
     if dev.type != "cuda":
@@ -193,10 +233,13 @@ def _launch(source, epi, thresh, q, tiles, bias, g_all, *, L, K, P, SUB, BS_M):
         if x.device != dev or x.dtype != dtype or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous {dtype} tensor on {dev}, got "
                              f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
-    if K != colmax_mma.K or P % 16 or BS_M % 16 or n_tiles > 65535:
-        raise ValueError(f"the CUDA kernel takes K = {colmax_mma.K}, P % 16 == 0, BS_M % 16 "
-                         f"== 0 and at most 65535 tiles; got K={K}, P={P}, BS_M={BS_M}, "
+    n_blocks = n_tiles * _cdiv(P, BN)
+    if K != colmax_mma.K or P % 16 or n_blocks >= 2**31:
+        raise ValueError(f"the CUDA kernel takes K = {colmax_mma.K}, P % 16 == 0 and fewer "
+                         f"than 2^31 thread blocks of {BN} columns; got K={K}, P={P}, "
                          f"{n_tiles} tiles")
+    if source == "streamed" and g_all.data_ptr() % 16:
+        raise ValueError("g_all must be 16-byte aligned")
     n_sblocks = q.shape[0] // BS_M
     n_sb_pad8 = _cdiv(n_sblocks, 8) * 8
     if epi in ("count", "count8"):
@@ -204,14 +247,19 @@ def _launch(source, epi, thresh, q, tiles, bias, g_all, *, L, K, P, SUB, BS_M):
     else:
         out = torch.empty((n_tiles, n_sblocks, P), device=dev,
                           dtype=torch.float32 if epi == "colmax" else torch.uint8)
+    if n_tiles == 0 or n_sblocks == 0:
+        return out
+    depth = K if source == "streamed" else k_eff(L)
+    qc = chunk_layout(q[: n_sblocks * BS_M, :depth], BS_M)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     launch = nvcc.launcher("phase1_mma", "phase1_mma_launch",
-                           [i32, i32] + [vp] * 6 + [i32] * 8 + [vp])
+                           [i32] * 3 + [vp] * 6 + [i32] * 8 + [vp])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch(int(source == "streamed"), EPILOGUE[epi], thresh.data_ptr(),
-                    q.data_ptr(), *g_ptrs, out.data_ptr(), n_tiles, n_sblocks, n_sb_pad8,
+        rc = launch(int(source == "streamed"), EPILOGUE[epi], depth // 16, thresh.data_ptr(),
+                    qc.data_ptr(), *g_ptrs, out.data_ptr(), n_tiles, n_sblocks, n_sb_pad8,
                     BS_M, L, P, SUB, tile_w, stream)
     if rc != 0:
         raise RuntimeError(f"phase1_mma kernel launch failed with CUDA error {rc}")
+    launches[counter] += 1
     return out

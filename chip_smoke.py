@@ -80,14 +80,19 @@ Phases (any failure is a non-zero exit; nothing is caught):
    slice, the ``cuda`` backend's design frame (dense, then site-promoted)
    equal to the ``torch`` backend's.
 6. the three experiment kernels (the ports of ``experiments/int8_bench.py``,
-   ``phase1_ablate.py`` and ``phase1_bench.py``) at their scripts' full
-   shapes: the column max in int8 and bf16 (``wgmma``; 16 tiles x 40 blocks
-   x 512 rows x 16,384 columns, and a ragged 3 x 5 x 80 x 400 case), every
-   phase-1 ablation (A-D) and epilogue (a-d)
-   variant (320 tiles x 40 blocks x 512 rows x 16,384 columns), each held
-   bit-equal against its plain version and timed beside it, with its
-   registers (ptxas; no kernel may spill) and the ``scan_hits`` kernel's
-   time on the same inputs; then each entry point
+   ``phase1_ablate.py`` and ``phase1_bench.py``, all ``wgmma``) at their
+   scripts' full shapes: the column max in int8 and bf16 (16 tiles x 40
+   blocks x 512 rows x 16,384 columns, and a ragged 3 x 5 x 80 x 400 case),
+   every phase-1 ablation (A-D) and epilogue (a-d) variant (bf16; 320 tiles
+   x 40 blocks x 512 rows x 16,384 columns), each held bit-equal against
+   its plain version and timed beside it, beside its bound (its share of
+   it), with its registers (ptxas; no kernel may spill) and the
+   ``scan_hits`` kernel's time on the same inputs; the phase-1 column max
+   (variant a) also beside ``torch.mm`` into f32 + ``amax`` per tile on
+   ``build_g_all``'s G (the bf16 column max's yardstick too; the count
+   variants have none); every phase-1 variant again, bit-equal, at
+   P = 12,000 with 12 blocks of 80 and of 24 rows, L = 31 and 20, and bias
+   values that bf16 rounds and -0.0; then each entry point
    (``python -m barcoder_tpu_torch.experiments.<name>``) once in this
    process, with the launch counts at 0 before each: each must launch its
    kernel.
@@ -100,7 +105,10 @@ where one PyTorch call computes the same function, that call's time. The
 operations are those the function needs: for ``scan_hits`` 2 per pair for
 each of the 4L one-hot rows and each folded bias row; its
 ``issued_bound_ms`` is the same bound at the depth it issues (K_eff, a
-multiple of wgmma's k-step of 32). The
+multiple of wgmma's k-step of 32); for the phase-1 variants 2 bf16
+operations per pair for each of G's 4L + 2 rows when G is built (issued:
+``phase1_variants.k_eff``) and each of its K = 128 rows when it is
+streamed. The
 tensor rates are the card's own (``peaks`` in the line): its SM count x
 the type's dense operations per SM per clock x its highest SM clock.
 
@@ -122,6 +130,13 @@ for the scaling harness's workload through ``sharded_scan`` and
 machine with several, on one shard per card, splitting each profiled call into each card's busy
 time, the device idle share and the host's torch ops
 (``DIR/trace_{flagship,block_max}_{1,N}.json``).
+
+With ``--kernel-times``, it only times the kernels that share
+``csrc/wgmma_tile.cuh`` (``kernel_times``, on the inputs of phases 2, 3b,
+5b and 6) and prints one JSON line; a copy
+of this script run from the root of another tree of the package times that
+tree, which is how a change to the shared loop is held against its parent
+(parent, change, change, parent, in one call).
 
 Site tables are written to a fresh temporary ``BARCODER_TPU_ARTIFACTS``
 directory, so a table left on the machine by an earlier run cannot change
@@ -208,6 +223,20 @@ def hits_bound(L: int, bias_rows: int, fold: bool, pairs: int, n_bytes: int) -> 
     b = bound(2 * (4 * L + (bias_rows if fold else 0)) * pairs, "int8", n_bytes)
     b["issued_bound_ms"] = bound(2 * scan_hits.k_eff(L, bias_rows, fold) * pairs, "int8",
                                  n_bytes)["bound_ms"]
+    return b
+
+
+def phase1_bound(source: str, L: int, K: int, pairs: int, n_bytes: int) -> dict:
+    """The phase-1 variants' bound: 2 bf16 operations per pair for each row
+    of G the function needs, the 4L one-hot rows and the 2 bias rows when G
+    is built, all K rows of a streamed g_all (any row may be nonzero).
+    ``issued_bound_ms`` is the same at the depth the kernel issues
+    (``phase1_variants.k_eff`` built, K streamed)."""
+    from barcoder_tpu_torch.ops import phase1_variants
+
+    need, issued = (K, K) if source == "streamed" else (4 * L + 2, phase1_variants.k_eff(L))
+    b = bound(2 * need * pairs, "bf16", n_bytes)
+    b["issued_bound_ms"] = bound(2 * issued * pairs, "bf16", n_bytes)["bound_ms"]
     return b
 
 
@@ -328,6 +357,13 @@ def phase2_kernel_vs_plain() -> dict:
     return results
 
 
+def request_case():
+    """The kernel's inputs at the 20-nt request's full dense shape (see
+    :func:`phase2_request_shape`)."""
+    return kernel_case(np.random.default_rng(SEED + 3), L=20, fold_rows=2, S_pad=20480,
+                       n_tiles=288)
+
+
 def phase2_request_shape() -> dict:
     """The kernel at the 20-nt request's full shape: 288 tiles of 16,384
     columns, 20,480 rows (both strands, 40 blocks of 512), L = 20 with 2
@@ -339,8 +375,7 @@ def phase2_request_shape() -> dict:
         log(f"phase 2 ptxas scan_hits: {r}")
         if r["spill_stores"] or r["spill_loads"]:
             raise AssertionError(f"{r['function']} spills registers")
-    rng = np.random.default_rng(SEED + 3)
-    args, kw = kernel_case(rng, L=20, fold_rows=2, S_pad=20480, n_tiles=288)
+    args, kw = request_case()
     th, q, tiles, bias = args
     got = scan_hits.scan_block_hits(*args, **kw)
     want = scan_hits.scan_block_hits_reference(*args, **kw)
@@ -764,26 +799,45 @@ def phase3b_site_kernel(genome, libs) -> dict:
     4.6 Mb genome: request 1's library on its NGG sites (the table request
     2 cached) and the 32-nt library on its NGNC sites (a table built here,
     not cached, so later scans choose their engine as before)."""
+    out = {}
+    for name, L, pam, v in (("site_L20", 20, "NGG", 3), ("site_L32", 32, "NGNC", 1)):
+        args, kw, n_sites = site_case(genome, libs, L, pam, v)
+        out[name] = matrix_kernel_check(f"phase 3b {name} ({n_sites} sites)", args, kw,
+                                        rows=1 << 15)
+        out[name]["n_sites"] = n_sites
+    return out
+
+
+def site_case(genome, libs, L: int, pam: str, v: int):
+    """The kernel's arguments in matrix_rows mode for library ``L`` on its
+    ``pam`` sites of the genome, and the number of sites: at L = 20 the
+    table the site engine caches, else a table built here and not cached."""
     from barcoder_tpu_torch.ops import cuda_scan
     from barcoder_tpu_torch.ops.prep import enumerate_sites, spacer_matrix
 
     contig = genome.contigs[0]
     dev = torch.device("cuda")
-    out = {}
-    for name, L, pam, v in (("site_L20", 20, "NGG", 3), ("site_L32", 32, "NGNC", 1)):
-        seqs = list(dict.fromkeys(s for _, s in libs[L].entries))
-        prep = cuda_scan._QPrep(spacer_matrix(seqs), v, pam, "downstream",
-                                cuda_scan.DEFAULT_P, 512, dev)
-        if L == 20:
-            table = cuda_scan._site_table_for(prep, contig, "always")
-        else:
-            table = cuda_scan._SiteTable(prep.P, L, *enumerate_sites(contig, L, pam,
-                                                                     "downstream"), dev)
-        args, kw = site_kernel_args(prep, table)
-        out[name] = matrix_kernel_check(f"phase 3b {name} ({table.n_sites} sites)", args, kw,
-                                        rows=1 << 15)
-        out[name]["n_sites"] = table.n_sites
-    return out
+    seqs = list(dict.fromkeys(s for _, s in libs[L].entries))
+    prep = cuda_scan._QPrep(spacer_matrix(seqs), v, pam, "downstream", cuda_scan.DEFAULT_P, 512,
+                            dev)
+    if L == 20:
+        table = cuda_scan._site_table_for(prep, contig, "always")
+    else:
+        table = cuda_scan._SiteTable(prep.P, L, *enumerate_sites(contig, L, pam, "downstream"),
+                                     dev)
+    return *site_kernel_args(prep, table), table.n_sites
+
+
+def design_case(genome, candidates):
+    """The kernel's arguments at the design scan's shape: the candidate
+    guides (NGG, 20 nt, v = 1) on their site table, and the number of sites."""
+    from barcoder_tpu_torch.ops import cuda_scan
+    from barcoder_tpu_torch.ops.prep import spacer_matrix
+
+    prep = cuda_scan._get_prep(spacer_matrix(candidates), 1, "NGG", "downstream",
+                               cuda_scan.DEFAULT_P, 512, torch.device("cuda"))
+    table = cuda_scan._site_table_for(prep, genome.contigs[0], "always")
+    return *site_kernel_args(prep, table), table.n_sites
 
 
 def phase3_cli(rec) -> None:
@@ -1073,8 +1127,7 @@ def phase5b_design(rec, genome) -> dict:
     against the torch backend's on a 200 kb slice."""
     import pandas as pd
 
-    from barcoder_tpu_torch.ops import cuda_scan, scan_hits
-    from barcoder_tpu_torch.ops.prep import spacer_matrix
+    from barcoder_tpu_torch.ops import scan_hits
     from barcoder_tpu_torch.pipeline.design import find_candidate_guides, run_design
     from barcoder_tpu_torch.seqio.genbank import write_genbank
 
@@ -1115,6 +1168,8 @@ def phase5b_design(rec, genome) -> dict:
     if final.to_csv(sep="\t", index=False, na_rep="None") != proc.stdout:
         raise AssertionError("the design CLI's TSV differs from run_design's frame")
     check_design_guides(final, rec.seq)
+    if cands != candidates:
+        raise AssertionError("run_design scanned other candidates than the enumeration's")
     out.update(candidates=len(cands), targets_rows=len(tr.table), kept=len(final),
                phases_s=tr.stats["profile"]["timings_s"])
     log(f"phase 5b: run_design ({out['wall_s']:.2f} s, enumeration {out['enumerate_s']:.2f} "
@@ -1122,13 +1177,10 @@ def phase5b_design(rec, genome) -> dict:
         f"its own site at 0 mismatches; scan_hits launches {out['launches']} (matrix_rows "
         f"{out['matrix_launches']}); phases {out['phases_s']}")
 
-    prep = cuda_scan._get_prep(spacer_matrix(cands), 1, "NGG", "downstream",
-                               cuda_scan.DEFAULT_P, 512, torch.device("cuda"))
-    table = cuda_scan._site_table_for(prep, genome.contigs[0], "always")
-    args, kw = site_kernel_args(prep, table)
-    out["kernel"] = matrix_kernel_check(f"phase 5b design_L20 ({table.n_sites} sites)", args,
-                                        kw, rows=1 << 15, plain_reps=1)
-    del args, prep, table
+    args, kw, n_sites = design_case(genome, candidates)
+    out["kernel"] = matrix_kernel_check(f"phase 5b design_L20 ({n_sites} sites)", args, kw,
+                                        rows=1 << 15, plain_reps=1)
+    del args
 
     small = slice_genome(rec, 200_000)
     want, _, _ = run_design(small, "NGG", 20, backend="torch")
@@ -1162,6 +1214,8 @@ def _kernel_vs_plain(name: str, fn, plain, pairs: int, registers, **extra) -> di
     ms = cuda_ms(fn)
     plain_ms = cuda_ms(plain, reps=2)
     rate = pairs / (ms / 1e3)
+    if "bound_ms" in extra:
+        extra["share"] = extra["bound_ms"] / ms
     log(f"phase 6 {name}: bit-equal, max_abs_err {err}, kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, {rate:.4e} pairs/s, {registers} registers"
         + "".join(f", {k} {v:.4f}" if isinstance(v, float) else f", {k} {v}"
@@ -1172,17 +1226,49 @@ def _kernel_vs_plain(name: str, fn, plain, pairs: int, registers, **extra) -> di
 
 def library_colmax_ms(q, g, BS_M: int, want) -> float:
     """The column max through one PyTorch product per tile (``torch._int_mm``
-    in int8, ``torch.matmul`` in bf16, whose 0/1 sums are exact) and
-    ``amax``: checked equal to the kernel's ``want``, then timed."""
+    in int8; in bf16 ``torch.mm`` into f32, as the kernels sum, so that no
+    score is rounded to bf16) and ``amax``: checked equal to the kernel's
+    ``want``, then timed."""
     n_sb, P = q.shape[0] // BS_M, g.shape[2]
+    q = q[: n_sb * BS_M]
+
+    def mm(a, b):
+        if a.dtype == torch.int8:
+            return torch._int_mm(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
 
     def library():
-        mm = torch._int_mm if q.dtype == torch.int8 else torch.matmul
         return [mm(q, g[t]).view(n_sb, BS_M, P).amax(dim=1) for t in range(g.shape[0])]
 
     if not torch.equal(torch.stack(library()).to(want.dtype), want):
         raise AssertionError(f"the {q.dtype} library column max disagrees with the kernel")
     return cuda_ms(library, reps=2)
+
+
+def colmax_case(mode: str):
+    """int8_bench's inputs at its script's shape in ``mode`` (int8 or
+    bf16) on the card, and the kernel's output type."""
+    from barcoder_tpu_torch.experiments import int8_bench as m
+    from barcoder_tpu_torch.experiments import int8_inputs, int8_tensors
+    from barcoder_tpu_torch.ops import colmax_mma
+
+    q8, g8 = int8_inputs(m.N_TILES, m.N_SB, BS_M=m.BS_M, K=m.K, P=m.P, seed=SEED)
+    q, g = int8_tensors(q8, g8, m.DTYPES[mode], torch.device("cuda"))
+    return q, g, colmax_mma.OUT_DTYPE[m.DTYPES[mode]]
+
+
+def phase1_case():
+    """The phase-1 scripts' inputs at their shape on the card, with 30% of
+    the columns masked and hits planted, so the epilogues count something;
+    and the keyword arguments of the variants."""
+    from barcoder_tpu_torch.experiments import phase1_ablate as a
+    from barcoder_tpu_torch.experiments import phase1_inputs, phase1_tensors, plant_hits
+
+    thresh, q, tiles, bias = phase1_inputs(a.N_TILES, a.N_SB, L=a.L, K=a.K, P=a.P, BS_M=a.BS_M,
+                                           mask_share=0.3, seed=SEED)
+    plant_hits(q, tiles, L=a.L, P=a.P, seed=SEED + 1)
+    return (phase1_tensors(thresh, q, tiles, bias, torch.device("cuda")),
+            dict(L=a.L, K=a.K, P=a.P, SUB=a.SUB, BS_M=a.BS_M))
 
 
 def phase6_experiment_kernels() -> dict:
@@ -1191,10 +1277,7 @@ def phase6_experiment_kernels() -> dict:
     for the phase-1 variants also beside the scan_hits kernel on
     the same inputs (the scripts' random inputs with planted hits and 30%
     masked columns, so the epilogues count something)."""
-    from barcoder_tpu_torch.experiments import (
-        int8_bench, int8_inputs, int8_tensors, phase1_ablate, phase1_inputs, phase1_tensors,
-        plant_hits,
-    )
+    from barcoder_tpu_torch.experiments import int8_bench, int8_inputs, int8_tensors, phase1_ablate
     from barcoder_tpu_torch.ops import colmax_mma, nvcc, phase1_variants, scan_hits
 
     report = {n: nvcc.ptxas_report(n) for n in ("colmax_mma", "phase1_mma")}
@@ -1207,11 +1290,9 @@ def phase6_experiment_kernels() -> dict:
     out = {"colmax_mma": {}, "phase1_ablate": {}, "phase1_epilogue": {}}
 
     m = int8_bench
-    q8, g8 = int8_inputs(m.N_TILES, m.N_SB, BS_M=m.BS_M, K=m.K, P=m.P, seed=SEED)
     pairs = m.N_TILES * m.N_SB * m.BS_M * m.P
     for mode, dtype in m.DTYPES.items():
-        q, g = int8_tensors(q8, g8, dtype, dev)
-        od = colmax_mma.OUT_DTYPE[dtype]
+        q, g, od = colmax_case(mode)
         out_bytes = m.N_TILES * m.N_SB * m.P * torch.empty((), dtype=od).element_size()
         out["colmax_mma"][mode] = _kernel_vs_plain(
             f"colmax_mma {mode}", lambda: colmax_mma.colmax(q, g, od, BS_M=m.BS_M),
@@ -1229,11 +1310,7 @@ def phase6_experiment_kernels() -> dict:
     del q, g, qe, ge
 
     a = phase1_ablate
-    thresh, q, tiles, bias = phase1_inputs(a.N_TILES, a.N_SB, L=a.L, K=a.K, P=a.P, BS_M=a.BS_M,
-                                           mask_share=0.3, seed=SEED)
-    plant_hits(q, tiles, L=a.L, P=a.P, seed=SEED + 1)
-    th, q, tiles, bias = phase1_tensors(thresh, q, tiles, bias, dev)
-    kw = dict(L=a.L, K=a.K, P=a.P, SUB=a.SUB, BS_M=a.BS_M)
+    (th, q, tiles, bias), kw = phase1_case()
     pairs = a.N_TILES * a.N_SB * a.BS_M * a.P
     hits = scan_hits.scan_block_hits(th, q, tiles, bias, fold_bias=True, **kw)
     hits_ms = cuda_ms(lambda: scan_hits.scan_block_hits(th, q, tiles, bias, fold_bias=True,
@@ -1245,17 +1322,34 @@ def phase6_experiment_kernels() -> dict:
         f"issued {hb['issued_bound_ms']:.4f} ms")
     if hits.sum() == 0:
         raise AssertionError("phase 6 inputs give no hits")
-    phase1_bound = bound(2 * a.K * pairs, "bf16", nbytes(th, q, tiles, bias, hits))
     g_all = phase1_variants.build_g_all(tiles, bias, L=a.L, K=a.K, P=a.P)
+    # the column max's yardstick (variant a's function), on build_g_all's G
+    # (the built variants' G)
+    lib_ms = library_colmax_ms(q, g_all, a.BS_M,
+                               phase1_variants.bench_full("a", th, q, tiles, bias, **kw))
+    log(f"phase 6 phase-1 column max through torch.mm (bf16 -> f32) + amax: {lib_ms:.4f} ms")
+    n_sb = q.shape[0] // a.BS_M
+    out_bytes = {"count": nbytes(hits), "count8": nbytes(hits),
+                 "colmax": a.N_TILES * n_sb * a.P * 4, "hit": a.N_TILES * n_sb * a.P}
+
+    def regs(source, epi):
+        ks = a.K // 16 if source == "streamed" else phase1_variants.k_eff(a.L) // 16
+        return _registers(report["phase1_mma"], "phase1_mma_kernel<"
+                          f"{str(source == 'streamed').lower()}, "
+                          f"{phase1_variants.EPILOGUE[epi]}, {ks}>")
+
+    def variant_bound(source, epi):
+        g_in = (g_all,) if source == "streamed" else (tiles, bias)
+        return phase1_bound(source, a.L, a.K, pairs,
+                            nbytes(th, q, *g_in) + out_bytes[epi])
+
     for v, (source, epi) in phase1_variants.ABLATE.items():
         out["phase1_ablate"][v] = _kernel_vs_plain(
             f"phase1_ablate {v} ({source}, {epi})",
             lambda v=v: phase1_variants.ablate(v, th, q, tiles, bias, g_all, **kw),
             lambda v=v: phase1_variants.ablate_reference(v, th, q, tiles, bias, g_all, **kw),
-            pairs, _registers(report["phase1_mma"], "phase1_mma_kernel<"
-                              f"{str(source == 'streamed').lower()}, "
-                              f"{phase1_variants.EPILOGUE[epi]}>"),
-            scan_hits_ms=hits_ms, **phase1_bound)
+            pairs, regs(source, epi), scan_hits_ms=hits_ms, library_ms=None,
+            **variant_bound(source, epi))
     if not torch.equal(phase1_variants.ablate("A", th, q, tiles, bias, g_all, **kw), hits):
         raise AssertionError("phase1_ablate A disagrees with the scan_hits kernel")
     del g_all, hits
@@ -1264,10 +1358,52 @@ def phase6_experiment_kernels() -> dict:
             f"phase1_epilogue {v} ({epi})",
             lambda v=v: phase1_variants.bench_full(v, th, q, tiles, bias, **kw),
             lambda v=v: phase1_variants.bench_full_reference(v, th, q, tiles, bias, **kw),
-            pairs, _registers(report["phase1_mma"],
-                              f"phase1_mma_kernel<false, {phase1_variants.EPILOGUE[epi]}>"),
-            scan_hits_ms=hits_ms, **phase1_bound)
+            pairs, regs("built", epi), scan_hits_ms=hits_ms,
+            library_ms=lib_ms if v == "a" else None, **variant_bound("built", epi))
+    del th, q, tiles, bias
+    out["phase1_ragged"] = phase6_phase1_ragged()
     out["scan_hits_ms"] = hits_ms
+    return out
+
+
+def phase6_phase1_ragged() -> dict:
+    """Every phase-1 variant bit-equal to its plain version off the
+    scripts' shape: P = 12,000 (a ragged 512-column slab), 12 spacer blocks
+    (the batched variants' unwritten last group of 4), blocks of 80 and 24
+    rows (padded to 128 and 64), L = 31 (4L + 2 = 126 rows of K) and 20,
+    bias values that bf16 rounds and -0.0 in G row 4L beside MASK_BIAS."""
+    from barcoder_tpu_torch.experiments import (
+        phase1_inputs, phase1_tensors, plant_hits, round_bias,
+    )
+    from barcoder_tpu_torch.ops import phase1_variants
+
+    out = {}
+    for i, (n_tiles, n_sb, P, BS_M, L) in enumerate(((3, 12, 12000, 80, 31),
+                                                      (2, 12, 12000, 24, 20))):
+        thresh, q, tiles, bias = phase1_inputs(n_tiles, n_sb, L=L, K=128, P=P, BS_M=BS_M,
+                                               mask_share=0.3, seed=SEED + 10 + i)
+        plant_hits(q, tiles, L=L, P=P, seed=SEED + 20 + i)
+        round_bias(bias, seed=SEED + 30 + i)
+        th, q, tiles, bias = phase1_tensors(thresh, q, tiles, bias, torch.device("cuda"))
+        kw = dict(L=L, K=128, P=P, SUB=32, BS_M=BS_M)
+        g_all = phase1_variants.build_g_all(tiles, bias, L=L, K=128, P=P)
+        name = f"{n_tiles}x{n_sb}x{BS_M}x{P}_L{L}"
+        for v in phase1_variants.ABLATE:
+            got = phase1_variants.ablate(v, th, q, tiles, bias, g_all, **kw)
+            want = phase1_variants.ablate_reference(v, th, q, tiles, bias, g_all, **kw)
+            if not torch.equal(got, want) or want.sum() == 0:
+                raise AssertionError(f"phase1_ablate {v}, {name}: kernel disagrees with its "
+                                     "plain version (or counts nothing)")
+        for v in phase1_variants.BENCH:
+            got = phase1_variants.bench_full(v, th, q, tiles, bias, **kw)
+            want = phase1_variants.bench_full_reference(v, th, q, tiles, bias, **kw)
+            if not torch.equal(got, want):
+                raise AssertionError(f"phase1_epilogue {v}, {name}: kernel disagrees with its "
+                                     "plain version")
+        out[name] = dict(max_abs_err=0.0, hit_columns=float(
+            phase1_variants.bench_full("b", th, q, tiles, bias, **kw).sum()))
+        log(f"phase 6 phase-1 ragged {name}: all 8 variants bit-equal, "
+            f"{out[name]['hit_columns']:.0f} hit columns")
     return out
 
 
@@ -1295,6 +1431,49 @@ def phase6_entry_points() -> dict:
         if by_path[path][kernel] == 0:
             raise AssertionError(f"{path} never launched the {kernel} kernel")
     return by_path
+
+
+# --- kernel times (--kernel-times) --------------------------------------------
+
+def kernel_times(reps: int = 5) -> dict:
+    """CUDA-event times (``cuda_ms``, mean of ``reps`` after a warm-up) of
+    the kernels that share ``csrc/wgmma_tile.cuh``, with no checks, on the
+    inputs the phases build (the same builders, so the same inputs):
+    ``scan_hits`` at the 20-nt request's dense shape (``request_case``) and
+    in ``matrix_rows`` mode at the site and design shapes of the 4.6 Mb
+    genome (``site_case``, ``design_case``), ``colmax_mma`` in int8 and bf16
+    (``colmax_case``) and every phase-1 variant (``phase1_case``). The
+    builders use only what the package has had since its site engine, so
+    one copy of this script times two trees of the package, each run from
+    its own root: an A/B runs parent, change, change, parent in one call."""
+    from barcoder_tpu_torch.experiments import int8_bench
+    from barcoder_tpu_torch.ops import colmax_mma, phase1_variants, scan_hits
+    from barcoder_tpu_torch.pipeline.design import find_candidate_guides
+
+    out = {"scan_hits": {}, "colmax_mma": {}, "phase1": {}}
+    args, kw = request_case()
+    out["scan_hits"]["request"] = cuda_ms(lambda: scan_hits.scan_block_hits(*args, **kw), reps)
+    del args
+    _rec, genome, libs, _plants = build_inputs()
+    for name, (args, kw, _) in (
+            ("site", site_case(genome, libs, 20, "NGG", 3)),
+            ("design", design_case(genome, find_candidate_guides(genome, 20, "NGG")))):
+        out["scan_hits"][name] = cuda_ms(lambda: scan_hits.scan_block_hits(*args, **kw), reps)
+    del args
+    for mode in int8_bench.DTYPES:
+        q, g, od = colmax_case(mode)
+        out["colmax_mma"][mode] = cuda_ms(
+            lambda: colmax_mma.colmax(q, g, od, BS_M=int8_bench.BS_M), reps)
+    del q, g
+    (th, q, tiles, bias), kw = phase1_case()
+    g_all = phase1_variants.build_g_all(tiles, bias, L=kw["L"], K=kw["K"], P=kw["P"])
+    for v in phase1_variants.ABLATE:
+        out["phase1"][v] = cuda_ms(
+            lambda v=v: phase1_variants.ablate(v, th, q, tiles, bias, g_all, **kw), reps)
+    for v in phase1_variants.BENCH:
+        out["phase1"][v] = cuda_ms(
+            lambda v=v: phase1_variants.bench_full(v, th, q, tiles, bias, **kw), reps)
+    return out
 
 
 # --- phase 4 (--profile) -----------------------------------------------------
@@ -1518,15 +1697,25 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one CUDA card")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also profile steady requests; traces go to DIR")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="only time the wgmma kernels (see kernel_times) and print one "
+                         "JSON line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
-    from barcoder_tpu_torch.ops import nvcc
-
     # site tables of this run only: one left on disk by an earlier run would
     # send request 1 to the site engine
     artifacts = tempfile.TemporaryDirectory(prefix="chip_smoke_artifacts_")
     os.environ["BARCODER_TPU_ARTIFACTS"] = artifacts.name
+    if args.kernel_times:
+        import barcoder_tpu_torch
+
+        log(card_line())
+        log(json.dumps({"package": os.path.dirname(barcoder_tpu_torch.__file__),
+                        "kernel_times_ms": kernel_times()}))
+        artifacts.cleanup()
+        return 0
+    from barcoder_tpu_torch.ops import nvcc
 
     kind = torch.cuda.get_device_name(0)
     log(card_line())
@@ -1592,7 +1781,7 @@ def main(argv=None) -> int:
         if variants:
             row["variants"] = {v: {key: r.get(key) for key in
                                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                    "issued_bound_ms", "registers") if key in r}
+                                    "issued_bound_ms", "share", "registers") if key in r}
                                for v, r in variants.items()}
         return row
 

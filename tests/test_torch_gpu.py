@@ -25,7 +25,7 @@ import torch
 
 from barcoder_tpu.core.genome import contig_from_record
 from barcoder_tpu_torch.experiments import (
-    int8_inputs, int8_tensors, phase1_inputs, phase1_tensors, plant_hits,
+    int8_inputs, int8_tensors, phase1_inputs, phase1_tensors, plant_hits, round_bias,
 )
 from barcoder_tpu_torch.ops import colmax_mma, phase1_variants, scan_hits, scan_max
 from barcoder_tpu_torch.ops.cuda_scan import (
@@ -122,21 +122,29 @@ def make_max_case(L, fold, n_blocks, seed, P=512, n_tiles=2, n_pad=40):
     return q, codes, bias
 
 
-def make_phase1_case(n_tiles, n_sblocks, *, L, P, BS_M, seed):
+def make_phase1_case(n_tiles, n_sblocks, *, L, P, BS_M, seed, rounded=False):
     """numpy inputs of the phase-1 experiment kernels at a small size: the
     scripts' generator (random spacers, random codes) with MASK_BIAS on 30%
     of the columns, and hits planted by ``plant_hits`` (genome windows as
-    spacers, some rows with the second bias column 4L + 1)."""
+    spacers, some rows with the second bias column 4L + 1); ``rounded``
+    also gives the bias values that bf16 rounds and -0.0 (``round_bias``)."""
     thresh, q, tiles, bias = phase1_inputs(n_tiles, n_sblocks, L=L, K=K, P=P, BS_M=BS_M,
                                            mask_share=0.3, seed=seed)
     plant_hits(q, tiles, L=L, P=P, seed=seed + 1)
+    if rounded:
+        round_bias(bias, seed=seed + 2)
     return thresh, q, tiles, bias
 
 
-# (n_tiles, n_sblocks, P, BS_M, SUB, L): the TPU-like small case, the batched
-# quirk (12 blocks), and odd sizes (a ragged 256-column chunk at P = 400, a
-# spacer block of 64 + 16 rows, L = 31 filling K with 4L + 2 = 126 rows)
-PHASE1_CASES = [(2, 8, 256, 16, 8, 20), (3, 12, 1024, 64, 8, 20), (3, 11, 400, 80, 8, 31)]
+# (n_tiles, n_sblocks, P, BS_M, SUB, L, rounded): the TPU-like small case, the
+# batched quirk (12 blocks), and odd sizes: a ragged 512-column slab at P =
+# 400 and 12,000, spacer blocks of 64 + 16 and of 24 rows (padded to 128 and
+# 64), L = 31 filling K with 4L + 2 = 126 rows, bias values that bf16 rounds
+# and -0.0 (``rounded``); the built variants' depths 96 (L 20), 128 (L 31)
+# and 64 (L 12)
+PHASE1_CASES = [(2, 8, 256, 16, 8, 20, False), (3, 12, 1024, 64, 8, 20, False),
+                (3, 11, 400, 80, 8, 31, False), (2, 12, 12000, 24, 8, 31, True),
+                (3, 9, 1024, 80, 8, 20, True), (2, 9, 512, 48, 8, 12, True)]
 
 
 @pytest.fixture
@@ -435,13 +443,14 @@ def test_cuda_colmax_matches_plain(cuda, dtype, n_tiles, n_sblocks, BS_M, P):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_tiles,n_sblocks,P,BS_M,SUB,L", PHASE1_CASES)
-def test_cuda_phase1_variants_match_plain(cuda, n_tiles, n_sblocks, P, BS_M, SUB, L):
+@pytest.mark.parametrize("n_tiles,n_sblocks,P,BS_M,SUB,L,rounded", PHASE1_CASES)
+def test_cuda_phase1_variants_match_plain(cuda, n_tiles, n_sblocks, P, BS_M, SUB, L, rounded):
     """Every ablation (A-D) and epilogue (a-d) variant of the tensor-core
     phase-1 kernel against its plain version, bit-equal, in the kernel's
     full form; each launch counts once, on its own counter."""
     th, q, tiles, bias = phase1_tensors(
-        *make_phase1_case(n_tiles, n_sblocks, L=L, P=P, BS_M=BS_M, seed=P + L), cuda)
+        *make_phase1_case(n_tiles, n_sblocks, L=L, P=P, BS_M=BS_M, seed=P + L,
+                          rounded=rounded), cuda)
     g_all = phase1_variants.build_g_all(tiles, bias, L=L, K=K, P=P)
     other_g = phase1_variants.build_g_all(tiles.roll(7, dims=2), bias, L=L, K=K, P=P)
     kw = dict(L=L, K=K, P=P, SUB=SUB, BS_M=BS_M)
@@ -468,7 +477,32 @@ def test_cuda_phase1_variants_match_plain(cuda, n_tiles, n_sblocks, P, BS_M, SUB
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("L", [12, 20, 31])
+def test_cuda_phase1_built_variants_read_q_to_their_depth(cuda, L):
+    """The built variants' kernel issues k_eff(L) rows of G and reads Q's
+    first k_eff(L) columns: finite values past them meet G's zero rows in
+    the plain version, which gives the same result on the whole Q."""
+    thresh, q, tiles, bias = make_phase1_case(2, 9, L=L, P=1024, BS_M=80, seed=L,
+                                              rounded=True)
+    depth = phase1_variants.k_eff(L)
+    q[:, depth:] = np.random.default_rng(L).uniform(-4, 4, (q.shape[0], K - depth)).round(1)
+    th, q, tiles, bias = phase1_tensors(thresh, q, tiles, bias, cuda)
+    kw = dict(L=L, K=K, P=1024, SUB=8, BS_M=80)
+    for variant in "AC":
+        assert torch.equal(phase1_variants.ablate(variant, th, q, tiles, bias, None, **kw),
+                           phase1_variants.ablate_reference(variant, th, q, tiles, bias, None,
+                                                            **kw)), variant
+    for variant in phase1_variants.BENCH:
+        assert torch.equal(phase1_variants.bench_full(variant, th, q, tiles, bias, **kw),
+                           phase1_variants.bench_full_reference(variant, th, q, tiles, bias,
+                                                                **kw)), variant
+
+
+@pytest.mark.gpu
 def test_cuda_experiment_kernels_reject_bad_inputs(cuda):
+    """The limits the wrappers check: the phase-1 kernel takes K = 128, P %
+    16 == 0 and a 16-byte aligned g_all, and any BS_M > 0 (8 runs, bit-equal
+    to the plain version); colmax also BS_M % 16 == 0."""
     th, q, tiles, bias = phase1_tensors(
         *make_phase1_case(2, 8, L=20, P=256, BS_M=16, seed=1), cuda)
     kw = dict(L=20, K=K, P=256, SUB=8, BS_M=16)
@@ -478,13 +512,47 @@ def test_cuda_experiment_kernels_reject_bad_inputs(cuda):
         phase1_variants.bench_full("a", th, q, tiles.cpu(), bias, **kw)
     with pytest.raises(ValueError, match="g_all"):
         phase1_variants.ablate("B", th, q, tiles, bias, None, **kw)
-    with pytest.raises(ValueError, match="BS_M % 16"):
-        phase1_variants.ablate("C", th, q, tiles, bias, None, **dict(kw, BS_M=8))
+    with pytest.raises(ValueError, match="BS_M > 0"):
+        phase1_variants.ablate("C", th, q, tiles, bias, None, **dict(kw, BS_M=0))
+    with pytest.raises(ValueError, match="P % 16"):
+        phase1_variants.ablate("A", th, q, tiles, bias[:, :, :200].contiguous(), None,
+                               **dict(kw, P=200))
+    g_all = phase1_variants.build_g_all(tiles, bias, L=20, K=K, P=256)
+    with pytest.raises(ValueError, match="K = 128"):
+        phase1_variants.ablate("B", th, q[:, : K - 8].contiguous(), tiles, bias,
+                               g_all[:, : K - 8].contiguous(), **dict(kw, K=K - 8))
+    misaligned = torch.empty(g_all.numel() + 8, dtype=g_all.dtype, device=cuda)[1:]
+    misaligned = misaligned[: g_all.numel()].view_as(g_all).copy_(g_all)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        phase1_variants.ablate("B", th, q, tiles, bias, misaligned, **kw)
+    kw8 = dict(kw, BS_M=8)
+    assert torch.equal(phase1_variants.ablate("C", th, q, tiles, bias, None, **kw8),
+                       phase1_variants.ablate_reference("C", th, q, tiles, bias, None, **kw8))
     qi, gi = int8_tensors(*int8_inputs(1, 2, BS_M=16, K=K, P=256), torch.int8, cuda)
     with pytest.raises(ValueError, match="int32"):
         colmax_mma.colmax(qi, gi, torch.float32, BS_M=16)
     with pytest.raises(ValueError, match="P % 16"):
         colmax_mma.colmax(qi, gi[:, :, :200].contiguous(), torch.int32, BS_M=16)
+
+
+@pytest.mark.gpu
+def test_cuda_phase1_more_tiles_than_a_grid_axis(cuda):
+    """65,636 tiles of 16 columns: more than the 65,535 blocks a grid's y axis
+    holds, so only a 1-D grid reaches the last ones; every tile is held
+    against a product of the whole G at once."""
+    n_tiles, n_sb, L, P, SUB, BS_M = 65_636, 2, 4, 16, 4, 16
+    th, q, tiles, bias = phase1_tensors(
+        *make_phase1_case(n_tiles, n_sb, L=L, P=P, BS_M=BS_M, seed=3), cuda)
+    kw = dict(L=L, K=K, P=P, SUB=SUB, BS_M=BS_M)
+    g_all = phase1_variants.build_g_all(tiles, bias, L=L, K=K, P=P)
+    cmax = torch.einsum("rk,tkp->trp", q.float(), g_all.float()).reshape(
+        n_tiles, n_sb, BS_M, P).amax(dim=2)
+    counts = (cmax >= th).reshape(n_tiles, n_sb, SUB, P // SUB).sum(dim=3).float()
+    assert torch.equal(phase1_variants.bench_full("a", th, q, tiles, bias, **kw), cmax)
+    for variant in "AB":
+        got = phase1_variants.ablate(variant, th, q, tiles, bias, g_all, **kw)
+        assert torch.equal(got[:, :n_sb], counts) and got[:, n_sb:].sum() == 0
+    assert counts[-100:].sum() > 0
 
 
 @pytest.mark.parametrize("name", ["int8_bench", "phase1_ablate", "phase1_bench"])

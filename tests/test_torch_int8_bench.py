@@ -16,7 +16,8 @@ the kernel share: Q as 64-row chunks of wgmma core matrices
 their last row) and each thread block's 512-column slab of G transposed to
 K-major 16-byte pieces (``g_kmajor`` below: what the kernel's ``stage_g``
 writes to shared memory). test_staged_product_matches_pallas
-rebuilds the product from those bytes alone.
+rebuilds the product from those bytes alone (:func:`staged_product`, which
+test_torch_phase1_wgmma.py uses for the phase-1 kernel's staging too).
 
 Every comparison is EXACT: the products are 0/1, so the sums are small
 integers in int32 and in f32.
@@ -119,15 +120,29 @@ def g_kmajor(g_slab: torch.Tensor) -> torch.Tensor:
 
 def staged_colmax(q: torch.Tensor, g: torch.Tensor, BS_M: int) -> torch.Tensor:
     """The column maxima as the card kernel gets them, from the staged bytes
-    alone: Q's chunks read at byte c * 1024 + g * 128 + r * 16 + b for row
-    8g + r, K byte 16c + b; each 512-column slab of G (zero past P) read at
-    byte c * 512 * 16 + n * 16 + b for column n; one 64-row chunk times one
-    256-column warpgroup slice at a time, the max over a block's (padded)
-    chunks."""
-    n_sblocks = q.shape[0] // BS_M
+    alone: each 512-column slab of G (zero past P) staged by ``g_kmajor``
+    (see :func:`staged_product`)."""
     n_tiles, K_, P = g.shape
+
+    def stage(t, p0):
+        slab = torch.zeros((K_, 512), dtype=g.dtype)
+        slab[:, : min(512, P - p0)] = g[t, :, p0 : p0 + 512]
+        return g_kmajor(slab)
+
+    return staged_product(q, stage, n_tiles, P, BS_M)
+
+
+def staged_product(q: torch.Tensor, stage, n_tiles: int, P: int, BS_M: int) -> torch.Tensor:
+    """The column maxima of the wgmma kernels from the bytes they stage:
+    Q's chunks read at byte c * 1024 + g * 128 + r * 16 + b for row 8g + r,
+    K byte 16c + b; ``stage(t, p0)``, the 512-column slab of tile t from
+    column p0 as the kernel writes it to shared memory ((K bytes / 16, 512,
+    16 bytes / element size)), read at byte c * 512 * 16 + n * 16 + b for
+    column n; one 64-row chunk times one 256-column warpgroup slice at a
+    time, the max over a block's (padded) chunks."""
+    n_sblocks = q.shape[0] // BS_M
     esize = q.element_size()
-    kb = K_ * esize  # bytes of K
+    kb = q.shape[1] * esize  # bytes of K
     acc_t = torch.int32 if q.dtype == torch.int8 else torch.float32
     chunks = chunk_layout(q[: n_sblocks * BS_M], BS_M).reshape(-1).view(torch.uint8)
     n_chunks = chunks.numel() // (64 * kb)
@@ -138,12 +153,10 @@ def staged_colmax(q: torch.Tensor, g: torch.Tensor, BS_M: int) -> torch.Tensor:
     out = torch.empty((n_tiles, n_sblocks, P), dtype=acc_t)
     for t in range(n_tiles):
         for p0 in range(0, P, 512):
-            slab = torch.zeros((K_, 512), dtype=g.dtype)
-            slab[:, : min(512, P - p0)] = g[t, :, p0 : p0 + 512]
-            staged = g_kmajor(slab).reshape(-1).view(torch.uint8)
+            staged = stage(t, p0).reshape(-1).view(torch.uint8)
             # byte (c, n, b) -> column-major bytes (n, 16c + b): column n's K values
             cols = staged.reshape(kb // 16, 512, 16).permute(1, 0, 2).reshape(
-                512, kb).contiguous().view(g.dtype).to(acc_t)
+                512, kb).contiguous().view(q.dtype).to(acc_t)
             for w0 in range(0, min(512, P - p0), 256):
                 n = min(256, P - p0 - w0)
                 prod = rows @ cols[w0 : w0 + n].T  # (n_chunks, 64, n)
