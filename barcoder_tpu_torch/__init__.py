@@ -6,16 +6,19 @@ Pallas TPU kernel replaced by a kernel written by hand for Hopper
 (``csrc/``) and the rest of the device work in plain torch. The JAX package
 stays beside it as the reference. This package imports nothing of it and
 never ``jax``: it carries its own copies of the JAX-free modules it needs
-(``core``, ``seqio``, ``pipeline.design``, and ``Phases``, ``artifacts`` and
-``logger`` in ``utils``), each differing from its original in import lines at
-most.
+(``core``, ``seqio``, ``model``, ``api``, ``native_bridge``,
+``pipeline.design``, and ``Phases``, ``artifacts`` and ``logger`` in
+``utils``), each differing from its original in import lines at most, and
+partial copies of ``pipeline.heuristic_count`` and ``pipeline.distill``.
 
 Ported so far: the ``targets`` and ``design`` workloads and their CLIs, on
 one card (the dense and the site-compacted scan engine, chosen per scan) and
 sharded over several (site and dense engines, serving many libraries, the
 older block-max API and the scaling harness); all five TPU kernels of the
-repository, the three microbenchmarks' among them. Not yet: the class API,
-counting, ``mismatch`` and ``distill``, multi-host.
+repository, the three microbenchmarks' among them; the class API
+(``api.ScanRunner`` and the rest); ``count`` with its matching on the card
+(``CudaCounter``) or on the host; ``mismatch``; ``distill`` on one host. Not
+yet: sharded counting, multi-host, the GUI.
 
 Layers (bottom-up):
   - ``barcoder_tpu_torch.core`` / ``seqio`` — genome, encoding, PAM and file formats (copies)
@@ -23,7 +26,9 @@ Layers (bottom-up):
   - ``barcoder_tpu_torch.ops``      — scan engines on one card (kernel wrappers + nvcc build,
     plain torch scan, numpy oracle)
   - ``barcoder_tpu_torch.parallel`` — meshes, the sharded engines, the scaling harness
-  - ``barcoder_tpu_torch.pipeline`` — end-to-end workloads (targets, design)
+  - ``barcoder_tpu_torch.model``    — mismatch-efficacy linear model (copy)
+  - ``barcoder_tpu_torch.pipeline`` — end-to-end workloads (targets, design, count, distill)
+  - ``barcoder_tpu_torch.api``      — the class API (GuideFinder, ScanRunner, ...)
   - ``barcoder_tpu_torch.cli``      — command-line frontend
   - ``barcoder_tpu_torch.experiments`` — the phase-1 microbenchmarks' entry points
   - ``barcoder_tpu_torch.utils``    — phase timings and profiler, site-table artifacts, logging

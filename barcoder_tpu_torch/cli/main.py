@@ -1,13 +1,17 @@
 """CLI of the PyTorch port: ``python -m barcoder_tpu_torch <command> ...``.
 
-Commands:
+Commands map 1:1 to the JAX package's CLI and the reference's scripts:
   targets   ↔ targets.py        (guide→genome mapping)
   design    ↔ design_guides.py  (genome-wide guide design)
+  count     ↔ heuristicount.py  (barcode counting in reads)
+  mismatch  ↔ mismatch.py       (mismatch-efficacy model)
+  distill   ↔ distillreads.py   (read sort/compress preprocessing)
 
-Both default to ``--backend auto`` (the ``cuda`` engine, which needs a
-card); ``--backend torch`` or ``oracle`` runs on the CPU. The other
-workloads (count, mismatch, distill, gui) are not ported yet and run on the
-JAX package: ``python -m barcoder_tpu <command> ...``.
+``targets`` and ``design`` default to ``--backend auto`` (the ``cuda``
+engine, which needs a card); ``--backend torch`` or ``oracle`` runs on the
+CPU. ``count --engine device`` matches on the card; its other engines,
+``mismatch`` and ``distill`` run on the host. Not ported yet: ``gui``
+(``python -m barcoder_tpu gui``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,18 @@ def main(argv=None) -> int:
         return run(rest)
     if cmd == "design":
         from .design import main as run
+
+        return run(rest)
+    if cmd == "count":
+        from .count import main as run
+
+        return run(rest)
+    if cmd == "mismatch":
+        from .mismatch import main as run
+
+        return run(rest)
+    if cmd == "distill":
+        from .distill import main as run
 
         return run(rest)
     print(f"unknown command: {cmd}\n", file=sys.stderr)

@@ -46,6 +46,12 @@ Phases (any failure is a non-zero exit; nothing is caught):
    library on its NGNC sites (K_eff 128), each bit-equal to its plain
    version, timed beside it, beside its bound and beside ``torch._int_mm``
    + ``amax`` of the same product.
+3c. the class API: ``ScanRunner(genome)`` with its default backend (the
+   cuda engine) on request 1's library (NGG, v = 3), joined with the
+   features and exported as SAM: its mapped rows, read back from the SAM
+   and from the joined frame, equal the cuda engine's Hits, every planted
+   guide at 0 mismatches; ``scan_hits`` launches counted from 0 (the
+   ``api`` path of the kernels line).
 5. the sharded path: request 1 through ``run_targets(backend="sharded")``
    (the site engine; the frame must equal the cuda backend's), then
    ``sharded_scan`` over request 1's library and genome on a 1-shard mesh
@@ -96,6 +102,17 @@ Phases (any failure is a non-zero exit; nothing is caught):
    (``python -m barcoder_tpu_torch.experiments.<name>``) once in this
    process, with the launch counts at 0 before each: each must launch its
    kernel.
+7. counting at a screen's size: a library of 10,240 barcodes (20 nt),
+   2,000,000 single-end 75-nt reads and 1,000,000 pairs written with numpy
+   (lognormal counts, 3% of reads outside the library, 0.5% with an N);
+   ``run_count`` with the host engine (``vector``) and the card's
+   (``device``, ``CudaCounter``) on each layout: counts equal to the
+   generator's truth and to each other, the card's matching dispatched;
+   each engine's reads/s, the card time of its matching (CUDA events in
+   the dispatch worker) and its dispatches printed; the matching alone
+   timed on one batch already on the card, beside its bound; then ``python -m
+   barcoder_tpu_torch count lib.fasta r1.fastq --engine device`` in a
+   subprocess must print the same counts.
 
 The kernels line gives each kernel's launches per path (``launches_by_path``,
 each path's count taken from 0 just before it) and their sum, its time, its
@@ -867,6 +884,55 @@ def phase3_cli(rec) -> None:
     log("phase 3: CLI answered with the planted guide")
 
 
+def phase3c_class_api(genome, libs, plants, cuda_hits) -> dict:
+    """The class API on the card: ``ScanRunner`` with its default backend
+    (``auto``, the cuda engine) on request 1's library and the 4.6 Mb
+    genome (NGG, v = 3), joined with the features and exported as SAM. Its
+    mapped (Barcode, Start, Strand, Mismatches) rows equal phase 3's
+    ``cuda_hits`` for the same library, both in the SAM (read back with
+    ``parse_sam``) and in the joined frame's source rows; every planted
+    guide maps at 0 mismatches; the kernel launched."""
+    from barcoder_tpu_torch.api import ScanRunner
+    from barcoder_tpu_torch.ops import scan_hits
+    from barcoder_tpu_torch.seqio.sam import parse_sam
+
+    seqs = list(dict.fromkeys(s for _, s in libs[20].entries))
+    want = {(seqs[i], p, "-" if s else "+", m) for i, p, s, m in hit_tuples(cuda_hits)}
+    with tempfile.TemporaryDirectory() as d:
+        sam_path = os.path.join(d, "aln.sam")
+        scan_hits.launches = 0
+        t0 = time.perf_counter()
+        with ScanRunner(genome) as runner:
+            joined = runner.align(seqs, num_mismatches=3, pam="NGG", join_features=True,
+                                  sam_path=sam_path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = scan_hits.launches
+        with open(sam_path) as fh:
+            back = parse_sam(fh)
+    rows = lambda df: set(zip(df.Barcode, df.Start.astype(int), df.Strand,  # noqa: E731
+                              df.Mismatches.astype(int)))
+    mapped = back[back.Mapped]
+    if rows(mapped) != want or len(mapped) != len(want):
+        raise AssertionError(f"ScanRunner's SAM rows ({len(mapped)}) differ from the cuda "
+                             f"engine's Hits ({len(want)})")
+    if rows(joined[joined.Type == "source"]) != want:
+        raise AssertionError("ScanRunner's joined source rows differ from the cuda engine's Hits")
+    if len(back) != len(want) + len(set(seqs) - {b for b, *_ in want}):
+        raise AssertionError("the SAM lacks the unmapped barcodes")
+    for guide, pos, strand, _pam in plants[20]:
+        if (guide, pos, "+" if strand == "F" else "-", 0) not in want:
+            raise AssertionError(f"planted guide {guide} at {pos} missing from ScanRunner")
+    if launches < 1:
+        raise AssertionError("ScanRunner(genome) did not launch scan_hits")
+    genes = int((joined.Type == "gene").sum())
+    log(f"phase 3c: ScanRunner(genome) (auto = cuda) {wall:.4f} s: {len(want)} mapped rows == "
+        f"cuda_hits, SAM parsed back ({len(back)} records), {genes} gene rows joined, every "
+        f"planted guide at 0 mismatches, scan_hits launches {launches}")
+    return dict(wall_s=wall, mapped=len(want), sam_records=len(back), gene_rows=genes,
+                launches=launches)
+
+
 # --- phase 5 -----------------------------------------------------------------
 
 def same_hits(a, b) -> bool:
@@ -1433,6 +1499,198 @@ def phase6_entry_points() -> dict:
     return by_path
 
 
+# --- phase 7 -----------------------------------------------------------------
+
+N_BARCODES = 10_240  # the scale of request 1's 9,984 spacers
+N_SINGLE = 2_000_000  # single-end reads
+N_PAIRS = 1_000_000  # read pairs
+READ_LEN = 75
+PREFIX12, FLANK_L, FLANK_R = b"ACGTGCTAGCAT", b"GGTAGCTC", b"CTTAAGCA"
+UNDOC_SHARE, N_SHARE = 0.03, 0.005
+
+
+def count_data(d: str) -> dict:
+    """A screen's counting inputs, written with numpy from SEED: a library
+    of unique pure-ACGT 20-nt barcodes, N_SINGLE single-end 75-nt reads
+    (12-nt prefix, 8-nt flanks around the barcode, random tail) and
+    N_PAIRS pairs of the same design, each mate the reverse complement of
+    its read. Per-barcode counts are drawn lognormal, UNDOC_SHARE of the
+    reads carry a barcode outside the library, N_SHARE an N anywhere (the
+    counter drops those reads). Returns the paths and the truth: the
+    documented and undocumented counts of the reads without an N."""
+    rng = np.random.default_rng(SEED + 7)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    n_undoc = 2_048
+    pool = rng.integers(0, 4, (N_BARCODES + n_undoc + 64, 20)).astype(np.uint8)
+    _, first = np.unique(pool, axis=0, return_index=True)
+    pool = acgt[pool[np.sort(first)][: N_BARCODES + n_undoc]]
+    lib, undoc_bcs = pool[:N_BARCODES], pool[N_BARCODES:]
+    weight = rng.lognormal(0.0, 1.0, N_BARCODES)
+    names = [row.tobytes().decode() for row in lib]
+    undoc_names = [row.tobytes().decode() + "*" for row in undoc_bcs]
+    comp = np.zeros(256, np.uint8)
+    comp[list(b"ACGTN")] = list(b"TGCAN")
+
+    def reads(n: int):
+        undoc = rng.random(n) < UNDOC_SHARE
+        which = np.where(undoc, rng.integers(0, n_undoc, n),
+                         rng.choice(N_BARCODES, n, p=weight / weight.sum()))
+        out = np.empty((n, READ_LEN), np.uint8)
+        for at, part in ((0, PREFIX12), (12, FLANK_L), (40, FLANK_R)):
+            out[:, at : at + len(part)] = np.frombuffer(part, np.uint8)
+        out[:, 20:40] = np.where(undoc[:, None], undoc_bcs[np.minimum(which, n_undoc - 1)],
+                                 lib[which])
+        out[:, 48:] = acgt[rng.integers(0, 4, (n, READ_LEN - 48))]
+        has_n = rng.random(n) < N_SHARE
+        out[np.nonzero(has_n)[0], rng.integers(0, READ_LEN, int(has_n.sum()))] = ord("N")
+        keep = ~has_n
+        doc = np.bincount(which[keep & ~undoc], minlength=N_BARCODES)
+        und = np.bincount(which[keep & undoc], minlength=n_undoc)
+        truth = ({names[i]: int(c) for i, c in enumerate(doc) if c},
+                 {undoc_names[i]: int(c) for i, c in enumerate(und) if c})
+        return out, truth
+
+    def write_fastq(path: str, seqs) -> None:
+        n, w = seqs.shape
+        rec = np.empty((n, 2 * w + 7), np.uint8)
+        rec[:, :3] = np.frombuffer(b"@r\n", np.uint8)
+        rec[:, 3 : 3 + w] = seqs
+        rec[:, 3 + w : 6 + w] = np.frombuffer(b"\n+\n", np.uint8)
+        rec[:, 6 + w : 6 + 2 * w] = ord("I")
+        rec[:, -1] = ord("\n")
+        with open(path, "wb") as fh:
+            fh.write(rec.tobytes())
+
+    paths = {k: os.path.join(d, f) for k, f in (("lib", "lib.fasta"), ("r1", "r1.fastq"),
+                                                  ("p1", "p1.fastq"), ("p2", "p2.fastq"))}
+    with open(paths["lib"], "w") as fh:
+        fh.write("".join(f">bc{i}\n{s}\n" for i, s in enumerate(names)))
+    single, truth_single = reads(N_SINGLE)
+    write_fastq(paths["r1"], single)
+    del single
+    pairs, truth_pairs = reads(N_PAIRS)
+    write_fastq(paths["p1"], pairs)
+    write_fastq(paths["p2"], comp[pairs[:, ::-1]])
+    return dict(paths=paths, truth={"single_end": truth_single, "paired": truth_pairs})
+
+
+def phase7_counting() -> dict:
+    """Counting at a screen's size: ``run_count`` with the host engine
+    (``vector``) and the card's (``device``, CudaCounter) on N_SINGLE
+    single-end reads and N_PAIRS pairs against N_BARCODES barcodes. The
+    documented and undocumented counts must equal the generator's truth
+    and each other, and the card must have matched (``dispatches``). Then
+    the ``count`` CLI with ``--engine device`` in a subprocess must print
+    the in-process counts."""
+    from barcoder_tpu_torch.pipeline.heuristic_count import CudaCounter, run_count
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        data = count_data(d)
+        log(f"phase 7: wrote {N_BARCODES} barcodes, {N_SINGLE} single-end reads and {N_PAIRS} "
+            f"pairs ({time.perf_counter() - t0:.2f} s)")
+        paths = data["paths"]
+        device_doc = None
+        for layout, files in (("single_end", (paths["r1"], None)),
+                              ("paired", (paths["p1"], paths["p2"]))):
+            want_doc, want_undoc = data["truth"][layout]
+            got = {}
+            for engine in ("vector", "device"):
+                CudaCounter.dispatches, CudaCounter.match_ms = 0, 0.0
+                CudaCounter.device_ms = 0.0
+                t0 = time.perf_counter()
+                doc, undoc, total, info = run_count(paths["lib"], *files, engine=engine)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if info["engine"] != engine:
+                    raise AssertionError(f"{layout}: asked for {engine}, ran {info['engine']}")
+                if doc != want_doc or undoc != want_undoc:
+                    raise AssertionError(f"{layout} {engine}: counts differ from the truth "
+                                         f"({sum(doc.values())} / {sum(want_doc.values())} "
+                                         f"documented, {sum(undoc.values())} / "
+                                         f"{sum(want_undoc.values())} undocumented)")
+                n = N_SINGLE if layout == "single_end" else N_PAIRS
+                if total != n:
+                    raise AssertionError(f"{layout} {engine}: {total} reads, expected {n}")
+                got[engine] = dict(wall_s=wall, reads_per_s=total / wall, reads=total,
+                                   documented=sum(doc.values()),
+                                   undocumented=sum(undoc.values()),
+                                   dispatches=CudaCounter.dispatches,
+                                   match_ms=CudaCounter.match_ms,
+                                   device_ms=CudaCounter.device_ms)
+                if engine == "device":
+                    if CudaCounter.dispatches < 1:
+                        raise AssertionError(f"{layout}: the device engine dispatched nothing")
+                    if layout == "single_end":
+                        device_doc, cfg = doc, info["config"]
+                elif CudaCounter.dispatches:
+                    raise AssertionError(f"{layout}: the vector engine dispatched to the card")
+                r = got[engine]
+                log(f"phase 7 {layout} {engine}: {total} reads in {wall:.4f} s, "
+                    f"{r['reads_per_s']:.4e} reads/s, {r['documented']} documented, "
+                    f"{r['undocumented']} undocumented == truth; {r['dispatches']} dispatches, "
+                    f"matching {r['match_ms']:.4f} ms on the card, with copies "
+                    f"{r['device_ms']:.4f} ms")
+            out[layout] = got
+        out["match_replay"] = match_replay(cfg)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "barcoder_tpu_torch", "count", paths["lib"], paths["r1"],
+             "--engine", "device"],
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+        )
+        cli_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"count CLI failed:\n{proc.stderr[-3000:]}")
+    cli = {bc: int(c) for bc, c in (line.split("\t") for line in proc.stdout.splitlines())}
+    if cli != device_doc:
+        raise AssertionError(f"count CLI printed {len(cli)} barcodes, not the in-process counts")
+    log(f"phase 7: python -m barcoder_tpu_torch count ... --engine device printed the "
+        f"in-process counts ({len(cli)} barcodes, {cli_s:.2f} s); its log's head:\n"
+        f"{proc.stderr[:1500]}")
+    out["cli_s"] = cli_s
+    return out
+
+
+def match_replay(cfg, reps: int = 10) -> dict:
+    """The card time of CudaCounter's matching alone (CUDA events, mean of
+    ``reps`` after a warm-up) on one full batch already on the card: keys
+    of the library's barcodes drawn at random, UNDOC_SHARE of them random
+    keys that miss. Bound: the bytes it must move (the batch's keys and
+    eligibility read, its mask written, the table and the accumulator read
+    and written once) over the memory rate; the binary search's compares
+    are far below the card's operation rate."""
+    from barcoder_tpu_torch.pipeline.heuristic_count import CudaCounter
+
+    cc = CudaCounter(cfg)
+    n = CudaCounter._DISPATCH_ROWS
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    k = cc._keys_dev[torch.randint(0, cc.B, (n,), device="cuda", generator=g)]
+    miss = torch.rand(n, device="cuda", generator=g) < UNDOC_SHARE
+    k = torch.where(miss, torch.randint(-(2**62), 2**62, (n,), device="cuda", generator=g), k)
+    e = torch.ones(n, dtype=torch.bool, device="cuda")
+    cc._match(k, e)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        hit = cc._match(k, e)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / reps
+    found = int(hit.sum())
+    if found < int((~miss).sum()) or int(cc._acc.sum()) != found * (reps + 1):
+        raise AssertionError("the replayed matching lost hits")
+    n_bytes = n * (8 + 1 + 1) + cc.B * 8 * 4
+    b = bound(0, "int8", n_bytes)
+    log(f"phase 7: the matching alone on the card, {n} keys against {cc.B}: {ms:.4f} ms a "
+        f"batch (bound {b['bound_ms']:.4f} ms by bytes, share {b['bound_ms'] / ms:.3f}); "
+        f"{ms * N_SINGLE / n:.4f} ms for the {N_SINGLE} single-end reads")
+    return dict(rows=n, barcodes=cc.B, ms=ms, bound_ms=b["bound_ms"],
+                ms_single_end=ms * N_SINGLE / n)
+
+
 # --- kernel times (--kernel-times) --------------------------------------------
 
 def kernel_times(reps: int = 5) -> dict:
@@ -1739,10 +1997,12 @@ def main(argv=None) -> int:
     vs_plain, cuda_hits = phase3_hits_vs_plain(genome, libs, plants)
     site = phase3b_site_kernel(genome, libs)
     phase3_cli(rec)
+    api = phase3c_class_api(genome, libs, plants, cuda_hits)
     sharded = phase5_sharded(genome, libs, plants, cuda_hits)
     design = phase5b_design(rec, genome)
     experiments = phase6_experiment_kernels()
     entry_points = phase6_entry_points()
+    counting = phase7_counting()
     prof = None
     if args.profile:
         prof = {"targets": phase4_profile(genome, libs, args.profile),
@@ -1751,13 +2011,16 @@ def main(argv=None) -> int:
 
     log(json.dumps({"build_s": build_s, "phase2": k, "phase2_request_shape": k_req,
                     "phase2b": k2b, "phase3": main_path,
-                    "hits_vs_plain": vs_plain, "phase3b_site": site, "phase5": sharded,
+                    "hits_vs_plain": vs_plain, "phase3b_site": site, "phase3c_api": api,
+                    "phase5": sharded,
                     "phase5b_design": design, "phase6": experiments,
-                    "phase6_entry_points": entry_points, "profile": prof}))
+                    "phase6_entry_points": entry_points, "phase7_counting": counting,
+                    "profile": prof}))
     # launches per path, each path's counts taken from 0 just before it
     by_path = {
         "scan_hits": {"targets_cuda": main_path["launches_dense"],
                       "site": main_path["launches_site"],
+                      "api": api["launches"],
                       "design": design["launches"],
                       "sharded": sharded["launches"]["scan_hits"],
                       "harness": sharded["harness_launches"]["scan_hits"],

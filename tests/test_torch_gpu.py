@@ -662,3 +662,148 @@ def test_cuda_design_matches_torch(cuda, monkeypatch, tmp_path):
         pd.testing.assert_frame_equal(got_tr.table, want_tr.table)
         pd.testing.assert_frame_equal(got, want)
         assert len(cands) > 1000 and len(got) > 0
+
+
+# --- the class API and counting on the card -----------------------------------
+
+@pytest.mark.gpu
+def test_scan_runner_default_backend_matches_torch(cuda):
+    """ScanRunner with its default backend (auto: the cuda engine, the
+    kernel launched) gives the frames of backend="torch", joined and as
+    SAM text; the planted guides map at 0 mismatches."""
+    import io
+
+    import pandas as pd
+
+    from barcoder_tpu.core.genome import Genome
+    from barcoder_tpu_torch.api import ScanRunner
+    from barcoder_tpu_torch.seqio.sam import write_sam
+
+    rng = np.random.default_rng(41)
+    rec = make_record(n=50_000, topology="circular", seed=41, n_genes=20)
+    guides = [random_seq(20, rng) for _ in range(300)]
+    for i in range(0, 300, 30):
+        plant_guide(rec, guides[i], 300 + 4000 * (i // 30), pam="TGG",
+                    strand="F" if i % 60 else "R")
+    genome = Genome([contig_from_record(rec)], source="synthetic")
+    frames, sams = {}, {}
+    for backend in ("auto", "torch"):
+        runner = ScanRunner(genome) if backend == "auto" else ScanRunner(genome, backend=backend)
+        before = scan_hits.launches
+        df = runner.align(guides, num_mismatches=2, pam="NGG")
+        assert (scan_hits.launches > before) == (backend == "auto")
+        frames[backend] = (df, runner.align(guides, num_mismatches=2, pam="NGG",
+                                            join_features=True))
+        buf = io.StringIO()
+        write_sam(df, buf, seq_lens=genome.seq_lens)
+        sams[backend] = buf.getvalue()
+    for a, b in zip(frames["auto"], frames["torch"]):
+        pd.testing.assert_frame_equal(a, b)
+    assert sams["auto"] == sams["torch"]
+    df = frames["auto"][0]
+    for i in range(0, 300, 30):
+        rows = df[(df.Barcode == guides[i]) & (df.Start == 300 + 4000 * (i // 30))]
+        assert (rows.Mismatches == 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["single", "paired", "undocumented", "paired_undocumented_n",
+                                  "n_in_core", "len32", "len32_high_keys"])
+def test_cuda_counter_matches_vector(cuda, tmp_path, name):
+    """run_count(engine="device"), and the default ``auto`` with it, on the
+    card against the host engine on the CPU test's cases; the matching went
+    through the card."""
+    from barcoder_tpu_torch.pipeline.heuristic_count import CudaCounter, run_count
+
+    from .test_torch_count import _case, _files
+
+    barcodes, reads1, reads2, truth = _case(name)
+    f1, f2 = _files(tmp_path, reads1, reads2)
+    before = CudaCounter.dispatches
+    got = run_count(set(barcodes), f1, f2, engine="device", chunk_size=512)
+    want = run_count(set(barcodes), f1, f2, engine="vector", chunk_size=512)
+    auto = run_count(set(barcodes), f1, f2, chunk_size=512)
+    assert got[3]["engine"] == auto[3]["engine"] == "device"
+    assert got[:3] == want[:3] == auto[:3]
+    assert CudaCounter.dispatches > before
+    if truth is not None:
+        assert got[0] == truth
+
+
+@pytest.mark.gpu
+def test_cuda_counter_keys_at_and_above_2_63(cuda):
+    """The card's sorted key table in signed order (keys with bit 63 set
+    first), each key finding its own row; a 32-nt all-T barcode (key ~0)
+    counted as the per-read oracle counts it."""
+    from collections import Counter
+
+    from barcoder_tpu_torch.pipeline.heuristic_count import (
+        CountConfig, CudaCounter, VectorCounter, _pack_strings, count_chunk_reference,
+    )
+
+    barcodes = ["T" * 31 + "G", "G" * 32, "A" * 31 + "T", "C" * 32, "A" * 32, "T" * 32,
+                "ACGT" * 8, "TGCA" * 8, "GATC" * 8, "CTAG" * 8, "TTGG" * 8]
+    spec = dict(barcodes=set(barcodes), bc_len=32, L_fwd="AA", R_fwd="CC", L_fwd_start=0)
+    cc = CudaCounter(CountConfig(**spec))
+    assert cc.device.type == "cuda"
+    keys = _pack_strings(cc.bc_list).view(np.int64)
+    assert np.array_equal(cc._keys_dev.cpu().numpy(), np.sort(keys))
+    assert np.array_equal(cc._rows_dev.cpu().numpy(), np.argsort(keys))
+    reads = ["AA" + bc + "CC" for bc in barcodes for _ in range(3)] + ["AA" + "a" * 32 + "CC"]
+    cc.process_chunk((reads, None))
+    doc, undoc = cc.results()
+    ref, _ = count_chunk_reference((reads, None), CountConfig(**spec))
+    assert doc == Counter({bc: 3 for bc in barcodes})
+    assert (doc, undoc) == (Counter({k: v for k, v in ref.items() if not k.endswith("*")}),
+                            Counter({k: v for k, v in ref.items() if k.endswith("*")}))
+    vc = VectorCounter(CountConfig(**{**spec, "barcodes": set(barcodes) - {"T" * 32}}))
+    # the numpy path: the native single-end path counts a lowercase core as
+    # its uppercase barcode, where the oracle counts it as undocumented
+    vc._try_native_single_end = lambda *a: False
+    vc.process_chunk(([r for r in reads if "T" * 32 not in r], None))
+    doc.pop("T" * 32)
+    assert vc.results() == (doc, undoc)
+
+
+@pytest.mark.gpu
+def test_cuda_counter_spills_and_resumes(cuda, tmp_path, monkeypatch):
+    """Every dispatch spills the card's accumulator mid-stream, and a
+    checkpointed run killed mid-stream resumes: counts exact, one
+    dispatch per batch."""
+    import os
+
+    import barcoder_tpu_torch.pipeline.heuristic_count as hc
+
+    from .test_heuristic_count import make_barcodes, make_reads, write_reads
+
+    barcodes = make_barcodes(n=25, seed=4)
+    reads1, reads2, truth = make_reads(barcodes, n_reads=2500, seed=4)
+    write_reads(tmp_path / "r1.fastq", reads1)
+    write_reads(tmp_path / "r2.fastq", reads2)
+    f1, f2 = str(tmp_path / "r1.fastq"), str(tmp_path / "r2.fastq")
+    monkeypatch.setattr(hc.CudaCounter, "_ACC_SPILL_ROWS", 1)
+    monkeypatch.setattr(hc.CudaCounter, "_DISPATCH_ROWS", 512)
+    before = hc.CudaCounter.dispatches
+    doc, _, n, _ = hc.run_count(set(barcodes), f1, engine="device", chunk_size=512)
+    assert doc == truth and n == 2500
+    assert hc.CudaCounter.dispatches - before == 5  # 2,500 reads in batches of 512
+    want = hc.run_count(set(barcodes), f1, f2, chunk_size=256, engine="vector")
+    orig = hc.VectorCounter.process_matrices
+    calls = {"n": 0}
+
+    def crashing(self, m1, m2):
+        calls["n"] += 1
+        if calls["n"] > 6:
+            raise KeyboardInterrupt
+        return orig(self, m1, m2)
+
+    ckpt = str(tmp_path / "counts.ckpt.npz")
+    monkeypatch.setattr(hc.VectorCounter, "process_matrices", crashing)
+    with pytest.raises(KeyboardInterrupt):
+        hc.run_count(set(barcodes), f1, f2, chunk_size=256, engine="device",
+                     checkpoint_path=ckpt, checkpoint_every=2)
+    monkeypatch.setattr(hc.VectorCounter, "process_matrices", orig)
+    assert os.path.exists(ckpt)
+    got = hc.run_count(set(barcodes), f1, f2, chunk_size=256, engine="device",
+                       checkpoint_path=ckpt, checkpoint_every=2)
+    assert got[:3] == want[:3]

@@ -1,7 +1,8 @@
 """Import rules of the PyTorch port.
 
-* Importing ``barcoder_tpu_torch`` and running its ``targets`` and
-  ``design`` CLIs, its sharded engine (``sharded_scan_contigs``,
+* Importing ``barcoder_tpu_torch`` and running its ``targets``,
+  ``design``, ``count``, ``mismatch`` and ``distill`` CLIs, its class API,
+  ``run_count`` with the device engine on the CPU, its sharded engine (``sharded_scan_contigs``,
   ``sharded_scan_many``) on a CPU mesh, its scaling harness and its
   experiment entry points leaves ``jax`` and every module of the JAX
   package ``barcoder_tpu`` out of ``sys.modules`` (checked in a fresh
@@ -11,7 +12,9 @@
   helpers import the JAX package).
 * The modules the port copies from the JAX package differ from their
   originals in import lines only (exact line comparison), and the port's
-  ``Phases`` and ``dump_summary`` are verbatim copies.
+  ``Phases`` and ``dump_summary`` are verbatim copies. Its partial copies
+  (``pipeline/heuristic_count.py``, ``pipeline/distill.py``) share every
+  top-level definition with their originals but a named few.
 """
 
 import ast
@@ -42,10 +45,26 @@ COPIES = {
     "utils/artifacts.py": "utils/artifacts.py",
     "utils/logger.py": "utils/logger.py",
     "pipeline/design.py": "pipeline/design.py",
+    "api.py": "api.py",
+    "native_bridge.py": "native_bridge.py",
+    "cli/count.py": "cli/count.py",
+    "cli/mismatch.py": "cli/mismatch.py",
+    "cli/distill.py": "cli/distill.py",
+    "model/__init__.py": "model/__init__.py",
+    "model/mismatch.py": "model/mismatch.py",
     **{f"core/{m}.py": f"core/{m}.py"
        for m in ("__init__", "encode", "genome", "pam", "coords", "locus")},
     **{f"seqio/{m}.py": f"seqio/{m}.py"
-       for m in ("__init__", "genbank", "fasta", "snapgene", "library")},
+       for m in ("__init__", "genbank", "fasta", "snapgene", "library", "sam", "fast_reader")},
+}
+
+# port module -> (the JAX package module it copies in part, the top-level
+# definitions that differ): every other definition the two share by name
+# is source-equal
+PARTIAL_COPIES = {
+    "pipeline/heuristic_count.py": ("pipeline/heuristic_count.py",
+                                    {"run_count", "_stream_counts"}),
+    "pipeline/distill.py": ("pipeline/distill.py", {"distill_reads"}),
 }
 
 # what a fresh interpreter reports after running the port: every loaded
@@ -203,6 +222,53 @@ def test_experiments_never_import_jax():
                                                                 "jax": []}
 
 
+_HOST_PROBE = """
+import io, json, sys
+from contextlib import redirect_stdout
+import barcoder_tpu_torch.api
+from barcoder_tpu_torch.cli.main import main
+from barcoder_tpu_torch.pipeline.heuristic_count import run_count
+lib, r1, r2, params, spacers = sys.argv[1:6]
+doc, undoc, total, info = run_count(lib, r1, r2, engine="device", device="cpu")
+buf = io.StringIO()
+with redirect_stdout(buf):
+    rcs = [main(["count", lib, r1, r2, "--engine", "vector"]),
+           main(["mismatch", "mismatches", "--spacers_file", spacers,
+                 "--parameters_file", params]),
+           main(["distill", r1, r2])]
+cli_counts = dict(line.split("\\t") for line in buf.getvalue().splitlines()[:len(doc)])
+print(json.dumps({"rcs": rcs, "engine": info["engine"], "total": total,
+                  "same": cli_counts == {k: str(v) for k, v in doc.items()},
+                  "jax": %s}))
+""" % _LOADED
+
+
+def test_count_mismatch_distill_and_api_never_import_jax(tmp_path):
+    """The class API, run_count(engine="device", device="cpu") and the
+    count, mismatch and distill CLIs, in a fresh interpreter: no jax, and
+    the CLI's counts equal the device engine's."""
+    from .test_heuristic_count import make_barcodes, make_reads, write_reads
+
+    barcodes = make_barcodes(n=12, seed=4)
+    reads1, reads2, _ = make_reads(barcodes, n_reads=600, seed=4)
+    write_reads(tmp_path / "r1.fastq", reads1)
+    write_reads(tmp_path / "r2.fastq", reads2)
+    (tmp_path / "lib.fasta").write_text("".join(f">{b}\n{b}\n" for b in barcodes))
+    (tmp_path / "params.csv").write_text(
+        "feature,weight\nintercept,0.1\n" + "".join(f"{p},0.0{p}\n" for p in range(20))
+        + "".join(f"{a}{b},0.2\n" for a in "ACGT" for b in "ACGT" if a != b)
+        + "GC_content,0.3\n")
+    (tmp_path / "spacers.tsv").write_text("target\n" + barcodes[0] + "\n")
+    args = [str(tmp_path / f) for f in ("lib.fasta", "r1.fastq", "r2.fastq", "params.csv",
+                                        "spacers.tsv")]
+    proc = subprocess.run([sys.executable, "-c", _HOST_PROBE, *args], capture_output=True,
+                          text=True, env=_probe_env(tmp_path), cwd=tmp_path, timeout=240)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == {
+        "rcs": [0, 0, 0], "engine": "device", "total": 600, "same": True, "jax": []}
+    assert (tmp_path / "r1.reads.zst").exists() and (tmp_path / "r2.reads.zst").exists()
+
+
 def _without_imports(path: Path) -> list[str]:
     """Source lines of a module, less every line of an import statement."""
     src = path.read_text()
@@ -218,6 +284,36 @@ def test_copied_modules_differ_only_in_imports(port, original):
     got = _without_imports(REPO / "barcoder_tpu_torch" / port)
     want = _without_imports(REPO / "barcoder_tpu" / original)
     assert got == want
+
+
+def _definitions(path: Path) -> dict[str, str]:
+    """Source text of each top-level function, class and assigned name."""
+    src = path.read_text()
+    out = {}
+    for node in ast.parse(src).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names = [node.name]
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            names = [t.id for t in targets if isinstance(t, ast.Name)]
+        else:
+            continue
+        for name in names:
+            out[name] = ast.get_source_segment(src, node)
+    return out
+
+
+@pytest.mark.parametrize("port", sorted(PARTIAL_COPIES))
+def test_partial_copies_share_their_definitions(port):
+    original, differ = PARTIAL_COPIES[port]
+    got = _definitions(REPO / "barcoder_tpu_torch" / port)
+    want = _definitions(REPO / "barcoder_tpu" / original)
+    assert differ <= set(got) & set(want)
+    shared = set(got) & set(want) - differ
+    assert len(shared) >= 10
+    assert {name for name in shared if got[name] != want[name]} == set()
+    src = (REPO / "barcoder_tpu_torch" / port).read_text()
+    assert "import jax" not in src and "jax." not in src
 
 
 def _imported_modules(path: Path) -> list[str]:
