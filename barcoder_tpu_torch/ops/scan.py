@@ -14,7 +14,10 @@ Backends:
                the phase-1 CUDA kernel; raises when CUDA is absent or the
                kernel fails to build or launch, and never falls back;
   ``sharded`` — the sharded engine (``parallel.sharded_scan``) over every
-               card (``parallel.mesh.make_mesh``); raises without one;
+               card (``parallel.mesh.make_mesh``), and over every process's
+               cards once ``parallel.multihost.initialize`` has joined
+               several; raises without a card unless the caller asked for
+               the CPU (``parallel.mesh.set_platform("cpu")``);
   ``torch``  — the plain torch scan (``ref_scan.torch_scan``), on the GPU
                when there is one, else on the CPU;
   ``oracle`` — the numpy oracle;
@@ -57,6 +60,12 @@ def _require_cuda(backend: str) -> None:
         )
 
 
+def _cpu_requested() -> bool:
+    from ..parallel.mesh import requested_cpu
+
+    return requested_cpu()
+
+
 def _torch_device() -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
@@ -72,7 +81,7 @@ def scan_contigs(
     """Batched multi-contig scan; returns Hits in INPUT ORDER. The cuda
     engine shares one library prep across contigs."""
     b = resolve_backend(backend)
-    if b in ("cuda", "sharded"):
+    if b == "cuda" or (b == "sharded" and not _cpu_requested()):
         _require_cuda(b)
     if b == "cuda":
         from .cuda_scan import cuda_scan_contigs

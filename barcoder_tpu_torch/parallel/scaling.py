@@ -28,7 +28,9 @@ seconds, the same workload measure for every engine) is not its work.
 
 Run: ``python -m barcoder_tpu_torch.parallel.scaling [n_bp] [n_spacers]
 [--engine flagship|dense|blockmax|both|all] [--single-chip] [--P N]
-[--devices 1,2] [--device cpu]``; prints one JSON object. The shards go on the cards
+[--devices 1,2] [--device cpu] [--processes K [--devices-per-process N]
+[--workload scan|count] [--real-devices] [--repeats R]]``; prints one JSON
+object. The shards go on the cards
 unless ``--device cpu`` (or ``devices=`` in :func:`measure_scaling`) asks
 for the CPU; without a card and without that, it raises.
 
@@ -37,6 +39,18 @@ a card, so the sharded-vs-single gap is printed directly. Each timed row
 reports ``launches``: how many times each CUDA kernel launched while it
 was timed (warm-up calls included), so a row that ran the plain torch
 version shows zeros.
+
+Multi-process (:func:`measure_multihost`): ``--processes K`` spawns K
+worker processes (``--mh-worker``) joined by ``parallel.multihost`` over a
+localhost rendezvous, each driving ``--devices-per-process`` shards (its
+cards, repeated; ``--real-devices`` names that default, ``--device cpu``
+asks for CPU shards instead), and times the flagship ``sharded_scan`` over
+the process-spanning mesh (``--workload scan``) or ``run_count`` with the
+sharded engine over chunk ownership (``--workload count``). It checks that
+every process returned the same hits or counts, and that the processes'
+``owned_reads`` cover the reads once. On one machine the processes share
+its cores and cards: the walls measure the mechanics, not cross-host
+scaling, and the report's ``note`` says so.
 """
 
 from __future__ import annotations
@@ -272,6 +286,173 @@ def measure_scaling(
     return out
 
 
+def _make_count_workload(d: str, n_reads: int = 200_000, n_barcodes: int = 2_000):
+    """Deterministic counting inputs for the multi-process harness: a FASTQ
+    of flank-anchored barcode reads and the barcode FASTA, written under d."""
+    import os
+
+    from ..core.encode import decode
+
+    rng = np.random.default_rng(1)
+    barcodes = sorted(
+        {decode(rng.integers(0, 4, 20).astype(np.int8)) for _ in range(n_barcodes)}
+    )
+    pre, l_fl, r_fl, tail = "ACGTG", "GGTAGCT", "CTTAAGC", "TCCATGGA"
+    fq = os.path.join(d, "count.fastq")
+    with open(fq, "w") as fh:
+        for i in rng.integers(0, len(barcodes), size=n_reads):
+            r = pre + l_fl + barcodes[i] + r_fl + tail
+            fh.write(f"@r\n{r}\n+\n{'I' * len(r)}\n")
+    bc = os.path.join(d, "barcodes.fasta")
+    with open(bc, "w") as fh:
+        for i, b in enumerate(barcodes):
+            fh.write(f">b{i}\n{b}\n")
+    return fq, bc, n_reads
+
+
+def measure_multihost(
+    n_bp: int,
+    n_spacers: int,
+    n_processes: int,
+    devices_per_process: int = 1,
+    P: int | None = None,
+    repeats: int = 3,
+    force_cpu: bool = False,
+    workload: str = "scan",
+    timeout_s: float = 900.0,
+) -> dict:
+    """Multi-process mechanics and efficiency: spawn ``n_processes`` worker
+    processes joined by ``parallel.multihost`` over a localhost rendezvous,
+    time the flagship sharded scan (or the sharded count) over the
+    process-spanning mesh in each, and check that every process observed
+    the same result. A worker that fails or outlives ``timeout_s`` fails
+    the call, and every worker is killed."""
+    import os
+    import sys
+    import tempfile
+
+    from .multihost import free_port, spawn_joined
+
+    if workload not in ("scan", "count"):
+        raise ValueError(f"unknown workload {workload!r}")
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    d = tempfile.mkdtemp(prefix="scaling_mh_")
+    extra: list[str] = ["--devices-per-process", str(devices_per_process),
+                        "--repeats", str(repeats)]
+    if P is not None:
+        extra += ["--P", str(P)]
+    if force_cpu:
+        extra += ["--device", "cpu"]
+    n_reads = None
+    if workload == "count":
+        fq, bc, n_reads = _make_count_workload(d)
+        extra += ["--workload", "count", "--fastq", fq, "--barcodes", bc]
+    outs = [os.path.join(d, f"p{pid}.json") for pid in range(n_processes)]
+    port = free_port()
+    runs = spawn_joined(
+        [[sys.executable, "-m", "barcoder_tpu_torch.parallel.scaling", "--mh-worker", str(pid),
+          str(n_processes), str(port), outs[pid], str(n_bp), str(n_spacers), *extra]
+         for pid in range(n_processes)], [env] * n_processes, repo, timeout_s)
+    for pid, (rc, stdout, stderr, _s) in enumerate(runs):
+        if rc != 0:
+            raise RuntimeError(f"multi-process worker {pid} failed (rc={rc}):"
+                               f"\n{(stdout + stderr)[-3000:]}")
+    results = []
+    for o in outs:
+        with open(o) as fh:
+            results.append(json.load(fh))
+    note = ("the processes share one machine's cores"
+            + (" and cards" if not force_cpu else "")
+            + ": the walls measure the mechanics, not cross-host scaling")
+    common = {
+        "workload": workload,
+        "processes": n_processes,
+        "devices_per_process": devices_per_process,
+        "global_devices": results[0]["global_devices"],
+        "platform": results[0]["platform"],
+        "per_process_seconds": [r["seconds"] for r in results],
+        "launches": [r["launches"] for r in results],
+    }
+    if workload == "count":
+        owned = [r["owned_reads"] for r in results]
+        return {
+            **common,
+            "reads": n_reads,
+            "reads_per_s": [n_reads / r["seconds"] for r in results],
+            "counts_identical": len({r["counts_digest"] for r in results}) == 1,
+            # chunk ownership: disjoint per-process parse shares that cover
+            # the stream once
+            "owned_reads": owned,
+            "owned_covers_stream": sum(owned) == n_reads,
+            "note": note,
+        }
+    return {
+        **common,
+        "genome_bp": n_bp,
+        "spacers": n_spacers,
+        "hits": results[0]["hits"],
+        "hit_sets_identical": len({r["hits_digest"] for r in results}) == 1,
+        "note": note,
+    }
+
+
+def _mh_worker(pid, nproc, port, out_path, n_bp, n_spacers, P, repeats, devices_per_process,
+               device=None, workload="scan", fastq=None, barcodes=None) -> int:
+    """One multi-process worker: join the run, then time the scan over the
+    process-spanning mesh (or the sharded count) and write a JSON report."""
+    import hashlib
+
+    from . import multihost
+
+    if device == "cpu":
+        multihost.initialize(f"localhost:{port}", nproc, pid)
+        pool = [torch.device("cpu")]
+    else:
+        # each process takes its share of the cards, or a card in turn
+        n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        ids = ([c for c in range(n_cards) if c % nproc == pid] or [pid % n_cards]
+               if n_cards else None)
+        multihost.initialize(f"localhost:{port}", nproc, pid, local_device_ids=ids)
+        pool = local_devices()
+    devices = [pool[i % len(pool)] for i in range(devices_per_process)]
+    before = _launches()
+    if workload == "count":
+        # run_count over chunk ownership on the shared FASTQ: each
+        # run samples and counts again (the production cold path)
+        from ..pipeline.heuristic_count import run_count
+        from ..seqio.fasta import read_barcode_fasta
+        from .sharded_count import make_read_mesh
+
+        bset = read_barcode_fasta(barcodes)
+        mesh = make_read_mesh(devices=devices)
+        dt, (doc, undoc, total, info) = _best_of(
+            lambda: run_count(bset, fastq, engine="sharded", chunk_size=2**14, mesh=mesh),
+            repeats)
+        report = {"counts_digest": hashlib.blake2b(
+                      repr((sorted(doc.items()), sorted(undoc.items()), total)).encode(),
+                      digest_size=12).hexdigest(),
+                  "owned_reads": info["owned_reads"]}
+    else:
+        from .sharded_scan import sharded_scan
+
+        contig, spacers = _make_workload(n_bp, n_spacers, 20)
+        mesh = make_mesh(devices=devices)
+        P = P or default_tile(mesh)
+        dt, hits = _best_of(
+            lambda: sharded_scan(spacers, contig, 1, pam="NGG", mesh=mesh, P=P), repeats)
+        tup = repr(sorted(zip(hits.spacer_idx.tolist(), hits.pos.tolist(),
+                              hits.strand.tolist(), hits.mismatches.tolist()))).encode()
+        report = {"hits": len(hits),
+                  "hits_digest": hashlib.blake2b(tup, digest_size=12).hexdigest()}
+    with open(out_path, "w") as fh:
+        json.dump({"process": pid, "global_devices": int(mesh.devices.size),
+                   "platform": devices[0].type, "seconds": dt,
+                   "launches": _launched_since(before), **report}, fh)
+    return 0
+
+
 def _take(args: list, flag: str):
     """Remove ``flag VALUE`` from args and return VALUE (None if absent)."""
     if flag not in args:
@@ -290,11 +471,34 @@ def main(argv=None) -> int:
     P = _take(args, "--P")
     counts = _take(args, "--devices")
     device = _take(args, "--device")
+    repeats = int(_take(args, "--repeats") or 3)
+    workload = _take(args, "--workload") or "scan"
+    fastq, barcodes = _take(args, "--fastq"), _take(args, "--barcodes")
+    dpp = int(_take(args, "--devices-per-process") or 1)
+    if "--real-devices" in args:  # the cards: the default, named
+        if device == "cpu":
+            raise SystemExit("--real-devices and --device cpu contradict each other")
+        args.remove("--real-devices")
+    if "--mh-worker" in args:
+        i = args.index("--mh-worker")
+        pid, nproc, port, out_path = args[i + 1 : i + 5]
+        del args[i : i + 5]
+        return _mh_worker(int(pid), int(nproc), port, out_path,
+                          int(args[0]) if args else 1 << 21,
+                          int(args[1]) if len(args) > 1 else 1024,
+                          int(P) if P else None, repeats, dpp, device=device,
+                          workload=workload, fastq=fastq, barcodes=barcodes)
+    nproc = _take(args, "--processes")
     single = "--single-chip" in args
     if single:
         args.remove("--single-chip")
     n_bp = int(args[0]) if args else 1 << 21
     n_spacers = int(args[1]) if len(args) > 1 else 1024
+    if nproc is not None:
+        print(json.dumps(measure_multihost(
+            n_bp, n_spacers, int(nproc), devices_per_process=dpp, P=int(P) if P else None,
+            repeats=repeats, force_cpu=device == "cpu", workload=workload), indent=2))
+        return 0
     print(
         json.dumps(
             measure_scaling(

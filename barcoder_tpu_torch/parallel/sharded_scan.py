@@ -45,7 +45,18 @@ What the port does differently, and why:
     overflow header, ``_grow_caps`` and the ``_CAPS_MEMO``): phase 1's pairs
     and phase 2's hits are compacted with ``torch.nonzero``, which is exact,
     so nothing can overflow and nothing is retried; hits are decoded on the
-    device and gathered on the host, in place of the packed ``all_gather``.
+    device and gathered on the host, in place of the packed ``all_gather``;
+  - over a mesh that spans processes (``parallel.multihost``), each process
+    builds, ships and launches only the shards it owns (``Mesh.is_local``),
+    the library axis of a 2-D mesh crossing the process boundary too, and
+    the hit lists of a scan are all-gathered on the host once, at its
+    collect, so every process returns the same global Hits. Nothing else
+    is exchanged: each shard's halo is read from the host's whole genome,
+    as on one process. ``sharded_scan_many`` and ``sharded_scan_contigs``
+    collect in input order on every process, so their gathers pair up;
+  - ``sharded_scan_block_max`` stays on one process, as in the JAX package,
+    which places its inputs with ``jax.device_put`` and so never spans
+    hosts there; it refuses a mesh that spans processes.
 """
 
 from __future__ import annotations
@@ -65,6 +76,7 @@ from ..ops.prep import build_scan_array, revcomp_matrix, site_masks, spacer_matr
 from ..ops.scan_hits import BS, _cdiv, bias_row, scan_block_hits
 from ..ops.scan_max import scan_block_max
 from ..ops.types import STRAND_F, STRAND_R, Hits
+from . import multihost
 from .mesh import GENOME_AXIS, LIBRARY_AXIS, Mesh, make_mesh
 
 _MAX_SPACER_LEN = 63  # the JAX engine's packed hit word holds mm in 6 bits
@@ -80,6 +92,29 @@ def _mesh_dims(mesh: Mesh) -> tuple[int, int]:
 def _grid(mesh: Mesh) -> np.ndarray:
     """The mesh's devices as an (n_library, n_genome) object array."""
     return mesh.devices.reshape(_mesh_dims(mesh))
+
+
+def _local_shards(mesh: Mesh):
+    """((library shard, genome shard), device) of every shard this process
+    owns, in mesh order."""
+    procs = mesh.processes.reshape(_mesh_dims(mesh))
+    me = multihost.process_index()
+    return [(idx, dev) for idx, dev in np.ndenumerate(_grid(mesh)) if procs[idx] == me]
+
+
+def _gather_hits(local: Hits, mesh: Mesh) -> Hits:
+    """The global Hits of a scan, sorted, from each process's own shards'
+    Hits: an all-gather on the host when ``mesh`` spans processes (every
+    process calls it once per scan, in the same order), else ``local``."""
+    if not mesh.spans_processes():
+        return local.sorted()
+    cols = np.stack([local.spacer_idx.astype(np.int64), local.pos.astype(np.int64),
+                     local.strand.astype(np.int64), local.mismatches.astype(np.int64)])
+    parts = [np.frombuffer(blob, np.int64).reshape(4, -1)
+             for blob in multihost.allgather_bytes(cols.tobytes())]
+    allc = np.concatenate(parts, axis=1)
+    return Hits(spacer_idx=allc[0], pos=allc[1], strand=allc[2].astype(np.int8),
+                mismatches=allc[3].astype(np.int32)).sorted()
 
 
 def _check_spacer_len(q_f: np.ndarray) -> None:
@@ -294,11 +329,11 @@ def shard_state(spacers, contig: Contig, pam: str = "", pam_direction: str = "do
 
 
 def _per_shard(mesh: Mesh, axis: str, make) -> dict:
-    """{(li, d): make(i) on the shard's device} with i the shard's index on
-    ``axis``; one tensor per (device, i), shared by the shards that repeat
-    a device."""
+    """{(li, d): make(i) on the shard's device} for this process's shards,
+    with i the shard's index on ``axis``; one tensor per (device, i),
+    shared by the shards that repeat a device."""
     made, out = {}, {}
-    for (li, d), dev in np.ndenumerate(_grid(mesh)):
+    for (li, d), dev in _local_shards(mesh):
         i = d if axis == GENOME_AXIS else li
         key = (str(dev), i)
         if key not in made:
@@ -430,7 +465,8 @@ def serving_cache_stats(reset: bool = False) -> dict:
 
 
 def _mesh_key(mesh: Mesh) -> tuple:
-    return tuple(mesh.shape.items()), tuple(str(d) for d in mesh.devices.ravel())
+    return (tuple(mesh.shape.items()), tuple(str(d) for d in mesh.devices.ravel()),
+            tuple(mesh.processes.ravel().tolist()))
 
 
 def _device_state(q_f, contig: Contig, pam: str, pam_direction: str, mesh: Mesh,
@@ -497,24 +533,29 @@ def _phase2(pairs, codes, ok, q, li: int, d: int, strand, g: _Geom, v: int) -> H
     return Hits.concat(out)
 
 
+def _thresholds(shards, value: float) -> dict:
+    """{device name: the threshold as a one-element f32 tensor there}."""
+    return {str(dev): torch.full((1,), value, dtype=torch.float32, device=dev)
+            for _, dev in shards}
+
+
 def _run(st: ShardTensors, g: _Geom, mesh: Mesh, v: int) -> Hits:
-    grid = _grid(mesh)
-    thresh = {str(dev): torch.full((1,), float(g.L - v), dtype=torch.float32, device=dev)
-              for dev in grid.ravel()}
+    shards = _local_shards(mesh)
+    thresh = _thresholds(shards, float(g.L - v))
     # phase 1 is launched on every shard before any shard's torch.nonzero
     # synchronises, so shards on different cards overlap
     inds = {
         (ji, li, d): _phase1(st.codes[li, d], st.ok[ji][li, d], st.q[ji][li, d],
                              thresh[str(dev)], g)
         for ji in range(len(st.q))
-        for (li, d), dev in np.ndenumerate(grid)
+        for (li, d), dev in shards
     }
     out = [
         _phase2(_compact_pairs(ind), st.codes[li, d], st.ok[ji][li, d], st.q[ji][li, d],
                 li, d, st.strands[ji], g, v)
         for (ji, li, d), ind in inds.items()
     ]
-    return Hits.concat(out).sorted()
+    return _gather_hits(Hits.concat(out), mesh)
 
 
 # --- the site-compacted engine -----------------------------------------------
@@ -574,14 +615,13 @@ class _SiteScanRun:
         self.S, self.L, self.K, self.SUB, self.P2 = S, L, K, SUB, P2
         self.BS_M, self.Bs, self.S_loc, self.n_sites = BS_M, Bs, S_loc, n_sites
         self.v = int(max_mismatches)
-        grid = _grid(mesh)
-        thresh = {str(dev): torch.full((1,), float(L - self.v), dtype=torch.float32, device=dev)
-                  for dev in grid.ravel()}
+        shards = _local_shards(mesh)
+        thresh = _thresholds(shards, float(L - self.v))
         # phase 1 on every shard before any shard's torch.nonzero syncs
         self.inds = {
             (li, d): site_indicator(self.codes[li, d], self.q[li, d], thresh[str(dev)], P=P,
                                     L=L, K=K, SUB=SUB, BS_M=BS_M)
-            for (li, d), dev in np.ndenumerate(grid)
+            for (li, d), dev in shards
         }
 
     def _phase2(self, pairs, li: int, d: int) -> Hits:
@@ -608,10 +648,12 @@ class _SiteScanRun:
         return Hits.concat(out)
 
     def collect(self) -> Hits:
+        # an empty scan is empty on every process (the site table and the
+        # library are the same everywhere), so none of them gathers
         if self.empty:
             return Hits()
-        return Hits.concat([self._phase2(_compact_pairs(ind), li, d)
-                            for (li, d), ind in self.inds.items()]).sorted()
+        return _gather_hits(Hits.concat([self._phase2(_compact_pairs(ind), li, d)
+                                         for (li, d), ind in self.inds.items()]), self.mesh)
 
 
 def _windowed_collect(makers, max_pending: int) -> list:
@@ -788,6 +830,8 @@ def sharded_scan_block_max(q_oh: torch.Tensor, scan_codes: np.ndarray, mask: np.
     the JAX layout: genome shards along the tile axis, library shards along
     the lanes; totals int32 counts, per lane, of tiles whose block max is
     >= 0, summed over genome shards ((nsb_pad_local,) on a 1-D mesh)."""
+    if mesh.spans_processes():
+        raise ValueError("sharded_scan_block_max runs on one process; its mesh spans several")
     n_lib, n_gen = _mesh_dims(mesh)
     tiles_sh, bias_sh = _block_max_state(scan_codes, mask, mesh, K=K, P=P)
     S_loc, S_tot, _, _ = _lib_layout(n_lib, q_oh.shape[0])

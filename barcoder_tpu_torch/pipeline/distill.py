@@ -313,14 +313,25 @@ def distill_reads(
     there as a durable zstd run and a rerun continues from the last one
     (see _DistillCheckpoint).
 
-    One host: the multi-host split of the JAX package (``_distill_multihost``)
-    is not ported yet (ROADMAP queue 1 item 5)."""
+    Multi-host (``parallel.multihost.is_multiprocess()`` after the CLI's
+    cluster join): with a checkpoint_dir on a SHARED filesystem, the
+    sort+compress phase — the measured bound — is divided across hosts by
+    chunk ownership (chunk i → host i mod K; unowned chunks skip at
+    newline-scan speed) and host 0 runs the final k-way merge (see
+    _distill_multihost). Without a checkpoint_dir, host 0 distills alone
+    while the others wait — identical output either way, never a write
+    race."""
     if zstd is None:
         raise RuntimeError("zstandard module unavailable")
     if not filenames:
         raise ValueError("No input files")
     info = log.info if log else (lambda *_: None)
     outputs = output_filenames or [get_output_filename(fn) for fn in filenames]
+
+    from ..parallel import multihost
+
+    if multihost.is_multiprocess():
+        return _distill_multihost(filenames, outputs, chunk_size, checkpoint_dir, info)
 
     return _distill_local(filenames, outputs, chunk_size, checkpoint_dir, info)
 
@@ -496,3 +507,140 @@ def _iter_tuple_chunks_owned(
     finally:
         for s in streams:
             s.close()
+
+
+# schema version of the per-host multi-host manifest (entries are
+# [chunk_no, run_name, n, widths] — a different format from
+# _DistillCheckpoint's, hence its own constant): bump on any entry-format
+# change so old manifests invalidate instead of being misparsed
+_MH_MANIFEST_VERSION = 1
+
+
+def _distill_multihost(
+    filenames: list[str],
+    outputs: list[str],
+    chunk_size: int,
+    checkpoint_dir: str | None,
+    info,
+) -> list[str]:
+    """Multi-host distill (the distributed generalization of the
+    reference's sorter pool, distillreads.py:350-433): the expensive
+    phase — read + lexsort + zstd run compression — is divided by chunk
+    ownership (chunk i → host i mod K) with each host spilling durable
+    runs named by chunk number into the SHARED ``checkpoint_dir``; after
+    an all-gather of the per-host run manifests (which doubles as the
+    completion barrier), host 0 alone streams the k-way merge into the
+    outputs. Per-host manifests give independent crash resume — hosts
+    never need lockstep, only the two barriers.
+
+    Without a checkpoint_dir there is no agreed shared spill area, so
+    host 0 distills alone while the others wait at the barrier (identical
+    outputs, no write race)."""
+    from ..parallel import multihost
+    from ..parallel.multihost import allgather_bytes
+
+    K, h = multihost.process_count(), multihost.process_index()
+    if not checkpoint_dir:
+        info("multi-host distill without a checkpoint dir: host 0 distills alone")
+        if h == 0:
+            _distill_local(filenames, outputs, chunk_size, None, info)
+        allgather_bytes(b"done")  # outputs complete before any host returns
+        return outputs
+
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    # K in the fingerprint: resuming with a different process count would
+    # re-partition chunk ownership over stale per-host done-sets, spill
+    # overlapping run files, and hard-fail the coverage check — losing all
+    # durable progress (r5 review)
+    fp = dict(
+        _DistillCheckpoint.make_fingerprint(filenames, outputs, chunk_size),
+        processes=K,
+    )
+    manifest = os.path.join(checkpoint_dir, f"manifest.p{h}.json")
+    done: dict[int, list] = {}
+    if os.path.exists(manifest):
+        try:
+            with open(manifest) as fh:
+                st = json.load(fh)
+        except (OSError, ValueError):
+            st = None
+        if st is not None:
+            if st.get("version") == _MH_MANIFEST_VERSION and st.get(
+                "fingerprint"
+            ) == fp and all(
+                os.path.exists(os.path.join(checkpoint_dir, r[1]))
+                for r in st.get("runs", [])
+            ):
+                done = {int(r[0]): r for r in st["runs"]}
+                if done:
+                    info(
+                        f"host {h}: resuming multi-host distill, "
+                        f"{len(done)} chunk(s) already spilled"
+                    )
+            else:
+                # stale manifest (inputs changed): remove the orphaned run
+                # files THIS host's manifest owns — leftovers past the new
+                # chunk count would otherwise accumulate and later trip the
+                # spill-coverage consistency check
+                for r in st.get("runs", []):
+                    p = os.path.join(checkpoint_dir, os.path.basename(r[1]))
+                    if os.path.exists(p):
+                        os.unlink(p)
+                info(f"host {h}: distill checkpoint does not match inputs; starting fresh")
+
+    def save_manifest() -> None:
+        tmp = manifest + ".tmp"
+        with open(tmp, "w") as fh:
+            json.dump(
+                {
+                    "version": _MH_MANIFEST_VERSION,
+                    "fingerprint": fp,
+                    "runs": sorted(done.values()),
+                },
+                fh,
+            )
+        os.replace(tmp, manifest)
+
+    save_manifest()
+    for chunk_no, cols in _iter_tuple_chunks_owned(
+        filenames, chunk_size, h, K, done_chunks=frozenset(done)
+    ):
+        if cols is None:
+            continue
+        arrays = _sort_chunk(cols)
+        run = _Run.write(arrays, checkpoint_dir, chunk_no, name=f"run{chunk_no}.zst")
+        done[chunk_no] = [chunk_no, os.path.basename(run.path), run.n,
+                          list(run.widths)]
+        save_manifest()
+        info(f"host {h}: spilled chunk {chunk_no} ({run.n:,} sequences)")
+
+    # barrier + manifest exchange: every host learns every run
+    metas: list = []
+    for blob in allgather_bytes(json.dumps(sorted(done.values())).encode()):
+        metas.extend(json.loads(blob))
+    metas.sort(key=lambda r: r[0])
+    nums = [m[0] for m in metas]
+    if nums != list(range(len(nums))):
+        raise RuntimeError(
+            "multi-host distill spill coverage is inconsistent (stale "
+            f"checkpoint dir?): chunk ids {nums}; clear {checkpoint_dir} "
+            "and rerun"
+        )
+    if h == 0:
+        runs = [
+            _Run(os.path.join(checkpoint_dir, name), n, widths)
+            for _no, name, n, widths in metas
+        ]
+        _merge_to_outputs(runs, outputs)
+    allgather_bytes(b"merged")  # outputs complete before any host returns
+    if h == 0:
+        for _no, name, *_rest in metas:
+            p = os.path.join(checkpoint_dir, name)
+            if os.path.exists(p):
+                os.unlink(p)
+        import glob
+
+        for m in glob.glob(os.path.join(checkpoint_dir, "manifest.p*.json")):
+            os.unlink(m)
+    info(f"wrote {', '.join(outputs)}")
+    return outputs

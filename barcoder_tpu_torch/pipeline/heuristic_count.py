@@ -19,6 +19,7 @@ per-read port is kept as the exactness oracle (count_chunk_reference).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import Counter
 from dataclasses import dataclass, field
@@ -842,6 +843,17 @@ def _pack_cores_u32(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return packed, has_n
 
 
+def match_keys(sk, rows, acc, k, e):
+    """The exact-match test on one device: each key of ``k`` placed in the
+    sorted table ``sk`` (``torch.searchsorted``), the hit mask (``e`` marks
+    the eligible reads), and the hits tallied into ``acc`` at each key's
+    ``rows`` entry (``index_add_``). Returns the hit mask."""
+    idx = torch.searchsorted(sk, k).clamp_(max=len(sk) - 1)
+    hit = (sk[idx] == k) & e
+    acc.index_add_(0, rows[idx], hit.to(torch.int64))
+    return hit
+
+
 class CudaCounter(VectorCounter):
     """Card-resident matching, the port's ``DeviceCounter``. The JAX engine
     matched each read's core on the TPU as a one-hot product against every
@@ -866,8 +878,16 @@ class CudaCounter(VectorCounter):
     its host buffers until the event after its copy back has completed; and
     drain()/results() retire the rest.
 
-    ``device=None`` is the card and raises without CUDA; ``device="cpu"``
-    runs the same torch code on the CPU, only when a caller asks for it."""
+    The matching runs over a list of shards (``_set_shards``): the
+    counter's device alone here, this process's shards of a read mesh in
+    ``parallel.sharded_count.ShardedCounter``. Each batch's keys split into
+    one contiguous slice per shard, each matched on its shard's device into
+    the shard's own accumulator; a fetch sums them on the host.
+
+    ``device=None`` is the card and raises without CUDA, unless the caller
+    asked for the CPU (``parallel.mesh.set_platform("cpu")``, the CLI's
+    ``BARCODER_TPU_PLATFORM=cpu``); ``device="cpu"`` runs the same torch
+    code on the CPU, only when a caller asks for it."""
 
     _DISPATCH_ROWS = 1 << 18  # reader chunks buffered per dispatched batch
     # the int64 accumulator cannot wrap; the spill into the host array every
@@ -875,9 +895,10 @@ class CudaCounter(VectorCounter):
     _ACC_SPILL_ROWS = 1 << 30
     _MAX_PENDING = 8
 
-    # batches matched on the card, and their card time (CUDA events): the
-    # matching alone, and with its copies. Class-wide, like a kernel's
-    # launch count; a caller zeroes them before the run it reads.
+    # batch slices matched on a card (one per shard and batch), and their
+    # card time (CUDA events): the matching alone, and with its copies.
+    # Class-wide, like a kernel's launch count; a caller zeroes them before
+    # the run it reads.
     dispatches = 0
     match_ms = 0.0
     device_ms = 0.0
@@ -885,12 +906,17 @@ class CudaCounter(VectorCounter):
 
     def __init__(self, cfg: CountConfig, device=None):
         if device is None:
-            if not torch.cuda.is_available():
+            from ..parallel.mesh import requested_cpu
+
+            if requested_cpu():
+                device = "cpu"
+            elif not torch.cuda.is_available():
                 raise RuntimeError(
                     "the device counting engine needs a CUDA device; pass "
                     "device='cpu' to match on the CPU"
                 )
-            device = "cuda"
+            else:
+                device = "cuda"
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             # an explicit index: the dispatch worker selects it for itself
@@ -910,8 +936,7 @@ class CudaCounter(VectorCounter):
             torch.from_numpy(self.bc_keys.view(np.int64)).to(device)
         )
         self._pending = []
-        self._acc = None  # card count accumulator since the last fetch
-        self._acc_rows = 0  # rows dispatched into _acc
+        self._acc_rows = 0  # rows dispatched since the last fetch
         # counts fetched by a spill, and unmatched cores tallied, on the
         # worker thread; merged into doc_counts and undoc by drain() on the
         # caller's thread, which alone writes those two (its slow path runs
@@ -922,63 +947,85 @@ class CudaCounter(VectorCounter):
         self._buf_rows = 0
         self._worker = None  # dispatch thread (started at first flush)
         self._worker_err = None
-        if device.type == "cuda" and self.B:
-            # a process's first launch of each matching op loads its code:
-            # take that here, not inside the first batch's timed window
-            # (no read is eligible, so nothing is counted)
-            self._match(self._keys_dev[:1], torch.zeros(1, dtype=torch.bool, device=device))
+        self._set_shards([device])
+
+    def _set_shards(self, devices) -> None:
+        """Match on ``devices``, one shard each (a device may repeat): the
+        sorted table copied once to each device, one int64 accumulator per
+        shard, created at its first batch."""
+        devices = [torch.device("cuda", torch.cuda.current_device())
+                   if d.type == "cuda" and d.index is None else d
+                   for d in map(torch.device, devices)]
+        tables = {}
+        for dev in devices:
+            if str(dev) in tables:
+                continue
+            sk, rows = self._keys_dev.to(dev), self._rows_dev.to(dev)
+            tables[str(dev)] = (sk, rows)
+            if dev.type == "cuda" and self.B:
+                # a process's first launch of each matching op on a card
+                # loads its code: take that here, not inside the first
+                # batch's timed window (no read is eligible, so nothing is
+                # counted)
+                with torch.cuda.device(dev):
+                    match_keys(sk, rows, torch.zeros(self.B, dtype=torch.int64, device=dev),
+                               sk[:1], torch.zeros(1, dtype=torch.bool, device=dev))
+        self._shard_devices = devices
+        self._tables = [tables[str(d)] for d in devices]
+        self._accs: list = [None] * len(devices)
 
     def _device_match_async(self, keys: np.ndarray, eligible: np.ndarray):
-        """Enqueue one batch's matching on the counter's device without
-        waiting: ``keys`` are the reads' 2-bit keys, ``eligible`` marks the
-        reads whose cores are pure ACGT and pass the host's checks. Returns
-        (n, in-flight batch): the matched mask (host),
-        the batch's CUDA events (None on the CPU) and its staged host
-        buffers, which must outlive the copies."""
+        """Enqueue one batch's matching without waiting, one contiguous
+        slice of it on each shard: ``keys`` are the reads' 2-bit keys,
+        ``eligible`` marks the reads whose cores are pure ACGT and pass the
+        host's checks. Returns (n, in-flight batch): the matched mask
+        (host), the batch's CUDA event quadruples, one per shard on a card,
+        and its staged host buffers, which must outlive the copies."""
         n = len(keys)
         k_host = torch.from_numpy(np.ascontiguousarray(keys).view(np.int64))
         e_host = torch.from_numpy(np.ascontiguousarray(eligible, dtype=bool))
-        cuda = self.device.type == "cuda"
-        events = None
+        cuda = any(d.type == "cuda" for d in self._shard_devices)
         if cuda:
             k_host, e_host = k_host.pin_memory(), e_host.pin_memory()
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            events[0].record()
-        k = k_host.to(self.device, non_blocking=True)
-        e = e_host.to(self.device, non_blocking=True)
-        if cuda:
-            events[1].record()
-        hit = self._match(k, e)
-        if cuda:
-            events[2].record()
-            matched = torch.empty(n, dtype=torch.bool, pin_memory=True)
-            matched.copy_(hit, non_blocking=True)
-            events[3].record()
-            with self._stats_lock:
-                CudaCounter.dispatches += 1
-        else:
-            matched = hit
+        matched = torch.empty(n, dtype=torch.bool, pin_memory=cuda)
+        cuts = np.linspace(0, n, len(self._shard_devices) + 1).astype(np.int64)
+        events = []
+        for i, dev in enumerate(self._shard_devices):
+            lo, hi = int(cuts[i]), int(cuts[i + 1])
+            if hi == lo:
+                continue
+            on_card = dev.type == "cuda"
+            with torch.cuda.device(dev) if on_card else contextlib.nullcontext():
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)] if on_card else None
+                if on_card:
+                    ev[0].record()
+                k = k_host[lo:hi].to(dev, non_blocking=True)
+                e = e_host[lo:hi].to(dev, non_blocking=True)
+                if on_card:
+                    ev[1].record()
+                if self._accs[i] is None:
+                    self._accs[i] = torch.zeros(self.B, dtype=torch.int64, device=dev)
+                hit = match_keys(*self._tables[i], self._accs[i], k, e)
+                if on_card:
+                    ev[2].record()
+                matched[lo:hi].copy_(hit, non_blocking=on_card)
+                if on_card:
+                    ev[3].record()
+                    events.append(ev)
+                    with self._stats_lock:
+                        CudaCounter.dispatches += 1
         self._acc_rows += n
         if self._acc_rows >= self._ACC_SPILL_ROWS:
             self._fetch_acc()
         return n, (matched, events, (k_host, e_host))
 
-    def _match(self, k, e):
-        """The exact-match test on the counter's device: each key's place in
-        the sorted table, the hit mask (``e`` marks the eligible reads), and
-        the hits tallied into the accumulator."""
-        sk = self._keys_dev
-        idx = torch.searchsorted(sk, k).clamp_(max=self.B - 1)
-        hit = (sk[idx] == k) & e
-        if self._acc is None:
-            self._acc = torch.zeros(self.B, dtype=torch.int64, device=self.device)
-        self._acc.index_add_(0, self._rows_dev[idx], hit.to(torch.int64))
-        return hit
-
     def _fetch_acc(self) -> None:
-        if self._acc is not None:
-            self._spilled += self._acc.cpu().numpy()
-            self._acc = None
+        """Add every shard's accumulator into the host's spill and restart
+        them."""
+        for i, acc in enumerate(self._accs):
+            if acc is not None:
+                self._spilled += acc.cpu().numpy()
+                self._accs[i] = None
         self._acc_rows = 0
 
     def _tally(self, keys, cores, eligible) -> None:
@@ -1114,11 +1161,11 @@ class CudaCounter(VectorCounter):
 
     def _drain_entry(self, entry) -> None:
         (n, (matched, events, _staged)), cores, eligible = entry
-        if events is not None:
-            events[3].synchronize()
+        for ev in events:
+            ev[3].synchronize()
             with self._stats_lock:
-                CudaCounter.match_ms += events[1].elapsed_time(events[2])
-                CudaCounter.device_ms += events[0].elapsed_time(events[3])
+                CudaCounter.match_ms += ev[1].elapsed_time(ev[2])
+                CudaCounter.device_ms += ev[0].elapsed_time(ev[3])
         un = eligible & ~matched.numpy()[:n]
         if un.any():
             uniq, counts = np.unique(cores[un], axis=0, return_counts=True)
@@ -1147,7 +1194,7 @@ class CudaCounter(VectorCounter):
     def reset(self) -> None:
         self._quiesce()
         super().reset()
-        self._acc = None
+        self._accs = [None] * len(self._shard_devices)
         self._acc_rows = 0
         self._spilled[:] = 0
         self._spilled_undoc.clear()
@@ -1209,6 +1256,7 @@ def run_count(
     checkpoint_path: str | None = None,
     checkpoint_every: int = 16,
     device=None,
+    mesh=None,
 ):
     """Full counting pipeline; returns (doc Counter, undoc Counter,
     total_reads, info dict).
@@ -1221,17 +1269,21 @@ def run_count(
 
     ``engine="device"`` matches on ``device`` (CudaCounter): None is the
     card, and raises without one; "cpu" runs its matching on the CPU.
-    ``engine="auto"`` is ``device`` for a library of pure-ACGT barcodes of
-    at most 32 nt; the card engine cannot represent any other library, which
+    ``engine="sharded"`` matches over the shards of a read mesh
+    (ShardedCounter; ``mesh``, default ``parallel.sharded_count.
+    make_read_mesh()``: every card, and every process's once
+    ``parallel.multihost.initialize`` has joined several). Under several
+    processes each process parses and counts only the chunks it owns
+    (chunk i → process i mod K), checkpoints to its own file
+    (``checkpoint_path.p<process>``), and every process returns the same
+    global counts. ``engine="auto"`` is ``sharded`` under several processes
+    and ``device`` on one, for a library of pure-ACGT barcodes of at most
+    32 nt; the card engines cannot represent any other library, which
     ``auto`` counts on the host (``vector``, or ``reference`` over 32 nt)
     and says so in ``log``."""
+    from ..parallel import multihost
     from ..seqio.fasta import read_barcode_fasta
 
-    if engine == "sharded":
-        raise ValueError(
-            "sharded counting is not ported yet (ROADMAP queue 1 item 5); "
-            "use --engine device or vector"
-        )
     if isinstance(barcode_file_or_set, str):
         barcodes = read_barcode_fasta(barcode_file_or_set)
     else:
@@ -1242,16 +1294,20 @@ def run_count(
         raise ValueError("All barcodes must be the same length")
     bc_len = lens.pop()
     is_paired = bool(file2)
-    if engine == "device" and bc_len > 32:
-        # the card engine 2-bit-packs barcode cores into 64-bit keys
+    if engine in ("device", "sharded") and bc_len > 32:
+        # the card engines 2-bit-pack barcode cores into 64-bit keys
         raise ValueError(
-            f"the device engine requires barcodes <= 32 nt (got {bc_len}); "
+            f"the {engine} engine requires barcodes <= 32 nt (got {bc_len}); "
             "use --engine reference"
         )
     if engine == "auto":
         pure = all(set(b) <= set("ACGT") for b in barcodes)
         if bc_len <= 32 and pure:
-            engine = "device"
+            # multi-host run: the sharded engine divides both the matching
+            # AND (via chunk ownership below) the host parse work across
+            # processes; the other engines would repeat the whole count on
+            # every process
+            engine = "sharded" if multihost.is_multiprocess() else "device"
         elif log:
             log.warn(
                 f"no card engine for this library ({bc_len}-nt barcodes"
@@ -1268,7 +1324,7 @@ def run_count(
                 f"(got {bc_len}); using the per-read engine"
             )
         engine = "reference"
-    use_vector = engine in ("vector", "device") or (
+    use_vector = engine in ("vector", "device", "sharded") or (
         engine == "auto" and bc_len <= 32
     )
     if checkpoint_path and not use_vector:
@@ -1284,7 +1340,19 @@ def run_count(
     undoc: Counter = Counter()
     total_reads = 0
     if use_vector:
-        vc = CudaCounter(cfg, device=device) if engine == "device" else VectorCounter(cfg)
+        if engine == "sharded":
+            from ..parallel.sharded_count import ShardedCounter
+
+            vc = ShardedCounter(cfg, mesh=mesh)
+        elif engine == "device":
+            vc = CudaCounter(cfg, device=device)
+        else:
+            vc = VectorCounter(cfg)
+        if checkpoint_path and multihost.is_multiprocess():
+            # every process runs run_count with the same argv: one
+            # checkpoint file each (its counts are its own) instead of K
+            # processes clobbering one path
+            checkpoint_path = f"{checkpoint_path}.p{multihost.process_index()}"
         ckpt = (
             _CheckpointState(
                 checkpoint_path, cfg,
@@ -1295,7 +1363,8 @@ def run_count(
         )
         try:
             doc, undoc, total_reads = _stream_counts(
-                vc, ckpt, sample, file1, file2, chunk_size, checkpoint_every,
+                vc, ckpt, engine, sample, file1, file2, chunk_size,
+                checkpoint_every, log,
             )
         except BaseException:
             # mid-stream failure (reader errors like a paired-end length
@@ -1317,7 +1386,7 @@ def run_count(
         "sample": sample,
         "config": cfg,
         "bc_len": bc_len,
-        "engine": (engine if engine == "device" else "vector")
+        "engine": (engine if engine in ("device", "sharded") else "vector")
         if use_vector
         else "reference",
     }
@@ -1328,17 +1397,64 @@ def run_count(
     return doc, undoc, total_reads, info
 
 
-def _stream_counts(vc, ckpt, sample, file1, file2, chunk_size, checkpoint_every):
-    """The array-engine streaming loop of run_count: restore the
-    checkpoint, feed every chunk, finalize, and collate results. Split out
-    so run_count's error path can tear the counter down (`vc.abort()`) no
-    matter where in the stream a failure lands."""
+def _stream_counts(
+    vc, ckpt, engine, sample, file1, file2, chunk_size,
+    checkpoint_every, log,
+):
+    """The array-engine streaming loop of run_count: restore/agree the
+    checkpoint, feed every chunk (owned or full-stream), finalize, and
+    collate results. Split out so run_count's error path can tear the
+    counter down (`vc.abort()`) no matter where in the stream a failure
+    lands."""
+    from ..parallel import multihost
     from ..seqio.fast_reader import iter_matrix_chunks
 
     skip_chunks = ckpt.restore(vc) if ckpt else 0
+    # a read mesh that spans the processes: each counts its own chunks
+    use_owned = engine == "sharded" and vc.spans_processes
+    if use_owned and ckpt is not None:
+        # cross-host resume agreement: a crash between hosts' saves can
+        # leave per-host checkpoints at different chunk_no; resuming
+        # from mismatched points would double-count on the later host.
+        # All hosts gather their restored chunk_no; on ANY mismatch every
+        # state is discarded and counting restarts from 0 — resuming from
+        # min() is NOT possible because a later host's restored counts
+        # already include the chunks past it and cannot be rewound. The
+        # gathered vector is identical everywhere, so every host takes the
+        # same branch.
+        _, all_equal = multihost.agree_int(skip_chunks)
+        if not all_equal:
+            if log:
+                log.warn(
+                    "Checkpoint resume points disagree across hosts "
+                    f"(this host: chunk {skip_chunks}); discarding "
+                    "checkpoints and recounting from the start"
+                )
+            vc.reset()
+            skip_chunks = 0
     f_a, f_b = (file1, file2) if not sample.need_swap else (file2, file1)
     chunk_no = 0
-    if f_a is None:
+    if use_owned:
+        from ..seqio.fast_reader import iter_owned_matrix_chunks
+
+        K, h = multihost.process_count(), multihost.process_index()
+        swapped_single = f_a is None
+        first, second = (f_b, None) if swapped_single else (f_a, f_b)
+        for chunk_idx, nrec, r1, r2 in iter_owned_matrix_chunks(
+            first, second, chunk_size, owner=h, num_owners=K,
+            start_chunk=skip_chunks,
+        ):
+            chunk_no = chunk_idx + 1
+            if chunk_no <= skip_chunks:
+                continue
+            m1 = r1[0] if r1 is not None else None
+            m2 = r2[0] if r2 is not None else None
+            if swapped_single:
+                m1, m2 = None, m1
+            vc.feed_owned(chunk_idx, nrec, m1, m2)
+            if ckpt and chunk_no % checkpoint_every == 0:
+                ckpt.save(vc, chunk_no)
+    elif f_a is None:
         # swapped single-end: the lone file is the reverse-orientation one
         for r1, _ in iter_matrix_chunks(f_b, None, chunk_size):
             chunk_no += 1
@@ -1362,4 +1478,15 @@ def _stream_counts(vc, ckpt, sample, file1, file2, chunk_size, checkpoint_every)
     # progress if it raises (r5 review)
     if ckpt:
         ckpt.finalize()
+    if use_owned:
+        # the documented counts came back global from results(); the
+        # undocumented tally is each host's own rows' — gather and merge so
+        # every host returns the identical collated result (the
+        # reference's end-of-run Counter merge, heuristicount.py:726-877)
+        import json
+
+        merged: Counter = Counter()
+        for blob in multihost.allgather_bytes(json.dumps(dict(undoc)).encode()):
+            merged.update(json.loads(blob))
+        undoc = merged
     return doc, undoc, vc.total_reads

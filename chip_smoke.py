@@ -113,6 +113,26 @@ Phases (any failure is a non-zero exit; nothing is caught):
    timed on one batch already on the card, beside its bound; then ``python -m
    barcoder_tpu_torch count lib.fasta r1.fastq --engine device`` in a
    subprocess must print the same counts.
+8. the multi-host path: ``ShardedCounter`` on a read mesh of two shards of
+   the card (2,000,000 single-end reads, counts equal to the truth) and
+   the graft twin (``entry()`` against its CPU run, ``dryrun_multichip(4)``)
+   in this process; then two worker processes (``--mh-worker``) joined by
+   ``parallel.multihost`` over localhost, each on its own card or both on
+   cuda:0, 2 shards each: request 1 through ``sharded_scan`` over the
+   process-spanning mesh (site and dense), a 2-D mesh whose library rows
+   are the two processes and ``sharded_scan_many`` over 8 libraries, every
+   Hits equal on both processes to phase 3's (and the solo scans), every
+   planted guide found, ``scan_hits`` launched in each worker; then
+   ``run_count`` (``auto``, which must take ``sharded``) on phase 7's reads
+   and pairs, counts equal to the truth on both, the owned reads disjoint
+   and covering the reads, reads/s per process; then the ``targets``
+   (``--backend sharded``), ``count`` and ``distill`` (200,000 pairs, a
+   shared checkpoint dir) CLIs in two processes joined by the
+   ``BARCODER_TPU_*`` env, against one process alone: the same stdout, the
+   same sorted outputs (distill only where ``zstandard`` is installed: it
+   writes zstd, and the card machine has no such module). A failed or hung worker (MH_TIMEOUT_S) fails the
+   run, and every subprocess is killed. Two processes on one card measure
+   the mechanics, not cross-host scaling.
 
 The kernels line gives each kernel's launches per path (``launches_by_path``,
 each path's count taken from 0 just before it) and their sum, its time, its
@@ -185,6 +205,7 @@ N_SPACERS = 9_984  # the 20-nt library of request 1
 N_SPACERS_32 = 1_024  # the 32-nt library of request 3
 N_PLANTED = 48  # planted guides per library
 SEED = 0
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(msg: str) -> None:
@@ -1574,74 +1595,74 @@ def count_data(d: str) -> dict:
     return dict(paths=paths, truth={"single_end": truth_single, "paired": truth_pairs})
 
 
-def phase7_counting() -> dict:
+def phase7_counting(d: str) -> tuple[dict, dict]:
     """Counting at a screen's size: ``run_count`` with the host engine
     (``vector``) and the card's (``device``, CudaCounter) on N_SINGLE
-    single-end reads and N_PAIRS pairs against N_BARCODES barcodes. The
-    documented and undocumented counts must equal the generator's truth
-    and each other, and the card must have matched (``dispatches``). Then
-    the ``count`` CLI with ``--engine device`` in a subprocess must print
-    the in-process counts."""
+    single-end reads and N_PAIRS pairs against N_BARCODES barcodes, written
+    under ``d`` (phase 8 counts them again). The documented and
+    undocumented counts must equal the generator's truth and each other,
+    and the card must have matched (``dispatches``). Then the ``count`` CLI
+    with ``--engine device`` in a subprocess must print the in-process
+    counts. Returns (the phase's report, the inputs: paths and truth)."""
     from barcoder_tpu_torch.pipeline.heuristic_count import CudaCounter, run_count
 
     out = {}
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        data = count_data(d)
-        log(f"phase 7: wrote {N_BARCODES} barcodes, {N_SINGLE} single-end reads and {N_PAIRS} "
-            f"pairs ({time.perf_counter() - t0:.2f} s)")
-        paths = data["paths"]
-        device_doc = None
-        for layout, files in (("single_end", (paths["r1"], None)),
-                              ("paired", (paths["p1"], paths["p2"]))):
-            want_doc, want_undoc = data["truth"][layout]
-            got = {}
-            for engine in ("vector", "device"):
-                CudaCounter.dispatches, CudaCounter.match_ms = 0, 0.0
-                CudaCounter.device_ms = 0.0
-                t0 = time.perf_counter()
-                doc, undoc, total, info = run_count(paths["lib"], *files, engine=engine)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                if info["engine"] != engine:
-                    raise AssertionError(f"{layout}: asked for {engine}, ran {info['engine']}")
-                if doc != want_doc or undoc != want_undoc:
-                    raise AssertionError(f"{layout} {engine}: counts differ from the truth "
-                                         f"({sum(doc.values())} / {sum(want_doc.values())} "
-                                         f"documented, {sum(undoc.values())} / "
-                                         f"{sum(want_undoc.values())} undocumented)")
-                n = N_SINGLE if layout == "single_end" else N_PAIRS
-                if total != n:
-                    raise AssertionError(f"{layout} {engine}: {total} reads, expected {n}")
-                got[engine] = dict(wall_s=wall, reads_per_s=total / wall, reads=total,
-                                   documented=sum(doc.values()),
-                                   undocumented=sum(undoc.values()),
-                                   dispatches=CudaCounter.dispatches,
-                                   match_ms=CudaCounter.match_ms,
-                                   device_ms=CudaCounter.device_ms)
-                if engine == "device":
-                    if CudaCounter.dispatches < 1:
-                        raise AssertionError(f"{layout}: the device engine dispatched nothing")
-                    if layout == "single_end":
-                        device_doc, cfg = doc, info["config"]
-                elif CudaCounter.dispatches:
-                    raise AssertionError(f"{layout}: the vector engine dispatched to the card")
-                r = got[engine]
-                log(f"phase 7 {layout} {engine}: {total} reads in {wall:.4f} s, "
-                    f"{r['reads_per_s']:.4e} reads/s, {r['documented']} documented, "
-                    f"{r['undocumented']} undocumented == truth; {r['dispatches']} dispatches, "
-                    f"matching {r['match_ms']:.4f} ms on the card, with copies "
-                    f"{r['device_ms']:.4f} ms")
-            out[layout] = got
-        out["match_replay"] = match_replay(cfg)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "barcoder_tpu_torch", "count", paths["lib"], paths["r1"],
-             "--engine", "device"],
-            capture_output=True, text=True, timeout=600,
-            cwd=os.path.dirname(os.path.abspath(__file__)),
-        )
-        cli_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = count_data(d)
+    log(f"phase 7: wrote {N_BARCODES} barcodes, {N_SINGLE} single-end reads and {N_PAIRS} "
+        f"pairs ({time.perf_counter() - t0:.2f} s)")
+    paths = data["paths"]
+    device_doc = None
+    for layout, files in (("single_end", (paths["r1"], None)),
+                          ("paired", (paths["p1"], paths["p2"]))):
+        want_doc, want_undoc = data["truth"][layout]
+        got = {}
+        for engine in ("vector", "device"):
+            CudaCounter.dispatches, CudaCounter.match_ms = 0, 0.0
+            CudaCounter.device_ms = 0.0
+            t0 = time.perf_counter()
+            doc, undoc, total, info = run_count(paths["lib"], *files, engine=engine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if info["engine"] != engine:
+                raise AssertionError(f"{layout}: asked for {engine}, ran {info['engine']}")
+            if doc != want_doc or undoc != want_undoc:
+                raise AssertionError(f"{layout} {engine}: counts differ from the truth "
+                                     f"({sum(doc.values())} / {sum(want_doc.values())} "
+                                     f"documented, {sum(undoc.values())} / "
+                                     f"{sum(want_undoc.values())} undocumented)")
+            n = N_SINGLE if layout == "single_end" else N_PAIRS
+            if total != n:
+                raise AssertionError(f"{layout} {engine}: {total} reads, expected {n}")
+            got[engine] = dict(wall_s=wall, reads_per_s=total / wall, reads=total,
+                               documented=sum(doc.values()),
+                               undocumented=sum(undoc.values()),
+                               dispatches=CudaCounter.dispatches,
+                               match_ms=CudaCounter.match_ms,
+                               device_ms=CudaCounter.device_ms)
+            if engine == "device":
+                if CudaCounter.dispatches < 1:
+                    raise AssertionError(f"{layout}: the device engine dispatched nothing")
+                if layout == "single_end":
+                    device_doc, cfg = doc, info["config"]
+            elif CudaCounter.dispatches:
+                raise AssertionError(f"{layout}: the vector engine dispatched to the card")
+            r = got[engine]
+            log(f"phase 7 {layout} {engine}: {total} reads in {wall:.4f} s, "
+                f"{r['reads_per_s']:.4e} reads/s, {r['documented']} documented, "
+                f"{r['undocumented']} undocumented == truth; {r['dispatches']} dispatches, "
+                f"matching {r['match_ms']:.4f} ms on the card, with copies "
+                f"{r['device_ms']:.4f} ms")
+        out[layout] = got
+    out["match_replay"] = match_replay(cfg)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "barcoder_tpu_torch", "count", paths["lib"], paths["r1"],
+         "--engine", "device"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    cli_s = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"count CLI failed:\n{proc.stderr[-3000:]}")
     cli = {bc: int(c) for bc, c in (line.split("\t") for line in proc.stdout.splitlines())}
@@ -1651,7 +1672,7 @@ def phase7_counting() -> dict:
         f"in-process counts ({len(cli)} barcodes, {cli_s:.2f} s); its log's head:\n"
         f"{proc.stderr[:1500]}")
     out["cli_s"] = cli_s
-    return out
+    return out, data
 
 
 def match_replay(cfg, reps: int = 10) -> dict:
@@ -1662,25 +1683,26 @@ def match_replay(cfg, reps: int = 10) -> dict:
     eligibility read, its mask written, the table and the accumulator read
     and written once) over the memory rate; the binary search's compares
     are far below the card's operation rate."""
-    from barcoder_tpu_torch.pipeline.heuristic_count import CudaCounter
+    from barcoder_tpu_torch.pipeline.heuristic_count import CudaCounter, match_keys
 
     cc = CudaCounter(cfg)
+    acc = torch.zeros(cc.B, dtype=torch.int64, device="cuda")
     n = CudaCounter._DISPATCH_ROWS
     g = torch.Generator(device="cuda").manual_seed(SEED)
     k = cc._keys_dev[torch.randint(0, cc.B, (n,), device="cuda", generator=g)]
     miss = torch.rand(n, device="cuda", generator=g) < UNDOC_SHARE
     k = torch.where(miss, torch.randint(-(2**62), 2**62, (n,), device="cuda", generator=g), k)
     e = torch.ones(n, dtype=torch.bool, device="cuda")
-    cc._match(k, e)
+    match_keys(cc._keys_dev, cc._rows_dev, acc, k, e)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
-        hit = cc._match(k, e)
+        hit = match_keys(cc._keys_dev, cc._rows_dev, acc, k, e)
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / reps
     found = int(hit.sum())
-    if found < int((~miss).sum()) or int(cc._acc.sum()) != found * (reps + 1):
+    if found < int((~miss).sum()) or int(acc.sum()) != found * (reps + 1):
         raise AssertionError("the replayed matching lost hits")
     n_bytes = n * (8 + 1 + 1) + cc.B * 8 * 4
     b = bound(0, "int8", n_bytes)
@@ -1689,6 +1711,305 @@ def match_replay(cfg, reps: int = 10) -> dict:
         f"{ms * N_SINGLE / n:.4f} ms for the {N_SINGLE} single-end reads")
     return dict(rows=n, barcodes=cc.B, ms=ms, bound_ms=b["bound_ms"],
                 ms_single_end=ms * N_SINGLE / n)
+
+
+# --- phase 8 -----------------------------------------------------------------
+
+MH_PROCESSES = 2  # worker processes of the multi-host phase
+MH_TIMEOUT_S = 480  # the longest any of phase 8's subprocesses may take
+N_DISTILL = 200_000  # read pairs of the multi-host distill
+DISTILL_CHUNK = 25_000  # its sort chunks: 8, so both processes spill
+
+
+def mh_envs(port: int) -> list:
+    """The environment of each of MH_PROCESSES processes joined over
+    localhost:port, then one alone."""
+    base = dict(os.environ, PYTHONPATH=ROOT)
+    return [dict(base, BARCODER_TPU_COORDINATOR=f"localhost:{port}",
+                 BARCODER_TPU_NUM_PROCESSES=str(MH_PROCESSES), BARCODER_TPU_PROCESS_ID=str(pid))
+            for pid in range(MH_PROCESSES)] + [base]
+
+
+def phase8_worker(pid: int, port: int, spec_path: str, out_path: str) -> int:
+    """One process of phase 8's two: join the other over localhost, then on
+    a mesh of 2 shards per process (process p on card p, or cuda:0 for
+    both on a one-card machine) run request 1 through ``sharded_scan``
+    (site and dense), a 2-D mesh whose library rows are the two processes,
+    and ``sharded_scan_many`` over 8 libraries; then ``run_count`` with
+    ``engine="auto"`` (``sharded`` under two processes, owned chunks) on
+    the single-end reads and the pairs. Writes the Hits (.npz) and a JSON
+    report: walls, counts, owned reads, scan_hits launches."""
+    import pickle
+
+    from barcoder_tpu_torch.ops import scan_hits
+    from barcoder_tpu_torch.parallel import multihost
+    from barcoder_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+    from barcoder_tpu_torch.parallel.sharded_scan import sharded_scan, sharded_scan_many
+    from barcoder_tpu_torch.pipeline.heuristic_count import run_count
+
+    card = pid % torch.cuda.device_count()
+    multihost.initialize(f"localhost:{port}", MH_PROCESSES, pid, local_device_ids=[card])
+    dev = torch.device("cuda", card)
+    torch.cuda.set_device(dev)
+    with open(spec_path, "rb") as fh:
+        spec = pickle.load(fh)
+    contig, seqs, P = spec["contig"], spec["seqs"], 16384
+    scan_hits.launches = scan_hits.matrix_launches = 0
+    mesh = make_mesh(devices=[dev] * 2)
+    mesh2d = make_mesh_2d(2, devices=[dev] * 2)
+    calls = {
+        "site": lambda: sharded_scan(seqs, contig, 3, "NGG", mesh=mesh, P=P),
+        "dense": lambda: sharded_scan(seqs, contig, 3, "NGG", mesh=mesh, P=P, site_mode="never"),
+        "2d": lambda: sharded_scan(seqs, contig, 3, "NGG", mesh=mesh2d, P=P),
+        "many": lambda: sharded_scan_many(spec["many_libs"], contig, 3, "NGG", mesh=mesh, P=P),
+    }
+    hits, walls_s = {}, {}
+    for name, call in calls.items():
+        walls_s[name] = []
+        for _ in range(2):  # first call, then steady
+            t0 = time.perf_counter()
+            hits[name] = call()
+            torch.cuda.synchronize()
+            walls_s[name].append(time.perf_counter() - t0)
+    launches = {"scan_hits": scan_hits.launches, "matrix_rows": scan_hits.matrix_launches}
+    arrays = {}
+    for name, h in hits.items():
+        for k, one in enumerate(h if name == "many" else [h]):
+            for f in ("spacer_idx", "pos", "strand", "mismatches"):
+                arrays[f"{name}{k}_{f}"] = getattr(one, f)
+    np.savez(out_path + ".npz", **arrays)
+    # the host merges alone, at the sizes the path gives them: the count's
+    # all-reduce of N_BARCODES + 1 int64 entries, and the all-gather of a
+    # hit list as long as this process's share of the site scan's
+    n_hits = len(hits["site"]) // MH_PROCESSES
+    merge_ms = {}
+    for name, merge in (
+            ("allreduce_counts", lambda: multihost.allreduce_sum(
+                np.zeros(N_BARCODES + 1, np.int64))),
+            ("allgather_hits", lambda: multihost.allgather_bytes(bytes(32 * n_hits)))):
+        merge()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            merge()
+        merge_ms[name] = (time.perf_counter() - t0) * 1e3 / 5
+    counts = {}
+    for layout, files in (("single_end", (spec["r1"],)), ("paired", (spec["p1"], spec["p2"]))):
+        t0 = time.perf_counter()
+        doc, undoc, total, info = run_count(spec["lib"], *files)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[layout] = dict(engine=info["engine"], total=total, owned=info["owned_reads"],
+                              wall_s=wall, reads_per_s=total / wall, doc=dict(doc),
+                              undoc=dict(undoc))
+    with open(out_path, "w") as fh:
+        json.dump({"process": multihost.process_index(), "processes": multihost.process_count(),
+                   "device": str(dev), "mesh_processes": mesh.processes.tolist(),
+                   "mesh2d_processes": mesh2d.processes.tolist(), "walls_s": walls_s,
+                   "merge_ms": merge_ms, "launches": launches, "counts": counts}, fh)
+    return 0
+
+
+def read_hits(path: str, name: str, k: int = 0):
+    from barcoder_tpu_torch.ops.types import Hits
+
+    with np.load(path) as z:
+        return Hits(**{f: z[f"{name}{k}_{f}"] for f in ("spacer_idx", "pos", "strand",
+                                                        "mismatches")})
+
+
+def zst_lines(path: str) -> list:
+    import zstandard
+
+    with zstandard.open(path, "rt") as fh:
+        return fh.read().splitlines()
+
+
+def phase8_multihost(rec, genome, libs, plants, cuda_hits, count: dict,
+                     phase7: dict) -> dict:
+    """The multi-host path on the card, through two worker processes
+    joined by ``parallel.multihost`` (``phase8_worker``): request 1's
+    sharded scans and ``run_count`` at phase 7's size against phase 3's
+    Hits, the solo scans and the generator's truth; the ``targets``,
+    ``count`` and ``distill`` CLIs in two processes joined by the env
+    against one process alone (the same stdout, the same outputs); and in
+    this process ``ShardedCounter`` on a read mesh of two shards of the
+    card and the graft twin (``entry()``, ``dryrun_multichip(4)``)."""
+    import pickle
+    import re
+
+    from barcoder_tpu_torch import graft_entry
+    from barcoder_tpu_torch.ops import scan_hits
+    from barcoder_tpu_torch.ops.cuda_scan import cuda_scan_contigs
+    from barcoder_tpu_torch.parallel.multihost import free_port, spawn_joined
+    from barcoder_tpu_torch.parallel.sharded_count import make_read_mesh
+    from barcoder_tpu_torch.pipeline.heuristic_count import CudaCounter, run_count
+    from barcoder_tpu_torch.seqio.genbank import write_genbank
+
+    out = {}
+    paths, truth = count["paths"], count["truth"]
+    dev = torch.device("cuda", 0)
+    contig = genome.contigs[0]
+    seqs = list(dict.fromkeys(s for _, s in libs[20].entries))
+    many_libs = [seqs[k::8] for k in range(8)]
+
+    # ShardedCounter in this process, on a read mesh of two shards of the card
+    CudaCounter.dispatches = 0
+    t0 = time.perf_counter()
+    doc, undoc, total, info = run_count(paths["lib"], paths["r1"], engine="sharded",
+                                        mesh=make_read_mesh(devices=[dev] * 2))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if (doc, undoc) != truth["single_end"] or total != N_SINGLE or info["owned_reads"] != total:
+        raise AssertionError("phase 8: ShardedCounter on two shards of the card miscounted")
+    if CudaCounter.dispatches < 2:
+        raise AssertionError("phase 8: ShardedCounter matched on fewer than two shards")
+    out["sharded_counter_2_shards"] = dict(wall_s=wall, reads_per_s=total / wall,
+                                           dispatches=CudaCounter.dispatches)
+    log(f"phase 8: ShardedCounter on [cuda:0] x 2, {total} single-end reads in {wall:.4f} s "
+        f"({total / wall:.4e} reads/s), {CudaCounter.dispatches} shard dispatches, == truth")
+
+    # the graft twin
+    scan_hits.launches = 0
+    fn, args = graft_entry.entry()
+    got = fn(*args)
+    fn_cpu, args_cpu = graft_entry.entry(device="cpu")
+    if not torch.equal(got.cpu(), fn_cpu(*args_cpu)) or float(got.sum()) < 4:
+        raise AssertionError("phase 8: the graft twin's entry() disagrees with its CPU run")
+    graft_entry.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    out["graft_launches"] = scan_hits.launches
+    if out["graft_launches"] == 0:
+        raise AssertionError("phase 8: the graft twin never launched the scan_hits kernel")
+    log(f"phase 8: graft twin entry() == its CPU run, dryrun_multichip(4) ran; scan_hits "
+        f"launches {out['graft_launches']}")
+
+    with tempfile.TemporaryDirectory() as d:
+        # the two workers
+        spec = os.path.join(d, "spec.pkl")
+        with open(spec, "wb") as fh:
+            pickle.dump(dict(contig=contig, seqs=seqs, many_libs=many_libs, lib=paths["lib"],
+                             r1=paths["r1"], p1=paths["p1"], p2=paths["p2"]), fh)
+        outs = [os.path.join(d, f"worker{pid}.json") for pid in range(MH_PROCESSES)]
+        port = free_port()
+        runs = spawn_joined([[sys.executable, os.path.abspath(__file__), "--mh-worker", str(pid),
+                              str(port), spec, outs[pid]] for pid in range(MH_PROCESSES)],
+                            mh_envs(port)[:MH_PROCESSES], ROOT, MH_TIMEOUT_S)
+        for pid, (rc, _stdout, stderr, _s) in enumerate(runs):
+            if rc != 0:
+                raise AssertionError(f"phase 8 worker {pid} failed (rc {rc}):\n{stderr[-3000:]}")
+        out["workers_s"] = max(r[3] for r in runs)
+        reports = []
+        planted = planted_tuples(seqs, plants[20])
+        solo = [cuda_scan_contigs(lib, [contig], 3, "NGG", site_mode="always")[0]
+                for lib in many_libs]
+        for pid, path in enumerate(outs):
+            with open(path) as fh:
+                r = json.load(fh)
+            reports.append(r)
+            if r["launches"]["scan_hits"] == 0:
+                raise AssertionError(f"phase 8 worker {pid} never launched the scan_hits kernel")
+            for name in ("site", "dense", "2d"):
+                h = read_hits(path + ".npz", name)
+                if not same_hits(h, cuda_hits) or not planted <= hit_tuples(h):
+                    raise AssertionError(f"phase 8 worker {pid}: {name} Hits differ from phase "
+                                         "3's or miss a planted guide")
+            for k, want in enumerate(solo):
+                if not same_hits(read_hits(path + ".npz", "many", k), want):
+                    raise AssertionError(f"phase 8 worker {pid}: sharded_scan_many library {k} "
+                                         "differs from its solo scan")
+            for layout, c in r["counts"].items():
+                n = N_SINGLE if layout == "single_end" else N_PAIRS
+                if c["engine"] != "sharded" or c["total"] != n:
+                    raise AssertionError(f"phase 8 worker {pid} {layout}: engine {c['engine']}, "
+                                         f"{c['total']} reads")
+                if (c["doc"], c["undoc"]) != truth[layout]:
+                    raise AssertionError(f"phase 8 worker {pid} {layout}: counts differ from "
+                                         "the truth")
+        for layout, n in (("single_end", N_SINGLE), ("paired", N_PAIRS)):
+            owned = [r["counts"][layout]["owned"] for r in reports]
+            if min(owned) <= 0 or sum(owned) != n:
+                raise AssertionError(f"phase 8 {layout}: owned reads {owned} do not cover {n}")
+        out["workers"] = [{"device": r["device"], "mesh_processes": r["mesh_processes"],
+                           "mesh2d_processes": r["mesh2d_processes"], "walls_s": r["walls_s"],
+                           "merge_ms": r["merge_ms"], "launches": r["launches"],
+                           "counts": {k: {f: c[f] for f in ("total", "owned", "wall_s",
+                                                            "reads_per_s")}
+                                      for k, c in r["counts"].items()}} for r in reports]
+        out["launches"] = sum(r["launches"]["scan_hits"] for r in reports)
+        for r in out["workers"]:
+            log(f"phase 8 worker on {r['device']}: site, dense, 2-D and many == phase 3 / solo, "
+                f"planted found; walls (first, steady) {r['walls_s']}; host merges "
+                f"{r['merge_ms']} ms; scan_hits launches {r['launches']}; counts == truth: "
+                + ", ".join(f"{k} {c['owned']} of {c['total']} owned, {c['wall_s']:.4f} s, "
+                            f"{c['reads_per_s']:.4e} reads/s (phase 7 device "
+                            f"{phase7[k]['device']['reads_per_s']:.4e})"
+                            for k, c in r["counts"].items()))
+
+        # the CLIs: two processes joined by the env against one alone
+        write_genbank([rec], os.path.join(d, "genome.gb"))
+        lib = os.path.join(d, "lib.fasta")
+        with open(lib, "w") as fh:
+            fh.write("".join(f">{name}\n{seq}\n" for name, seq in libs[20].entries))
+        clis = {
+            "targets": [sys.executable, "-m", "barcoder_tpu_torch", "targets", lib,
+                        os.path.join(d, "genome.gb"), "NGG", "3", "--backend", "sharded"],
+            "count": [sys.executable, "-m", "barcoder_tpu_torch", "count", paths["lib"],
+                      paths["r1"]],
+        }
+        out["cli_s"] = {}
+        for name, argv in clis.items():
+            port = free_port()
+            runs = spawn_joined([argv] * (MH_PROCESSES + 1), mh_envs(port), ROOT, MH_TIMEOUT_S)
+            for i, (rc, _stdout, stderr, _s) in enumerate(runs):
+                if rc != 0:
+                    raise AssertionError(f"phase 8 {name} CLI, process {i}, failed:\n"
+                                         f"{stderr[-3000:]}")
+            if len({r[1] for r in runs}) != 1 or not runs[0][1]:
+                raise AssertionError(f"phase 8 {name} CLI: the processes printed different "
+                                     "bytes from the one-process run")
+            out["cli_s"][name] = [r[3] for r in runs]
+            log(f"phase 8: {name} CLI in {MH_PROCESSES} processes joined by the env == one "
+                f"process alone ({len(runs[0][1])} bytes of stdout); walls {out['cli_s'][name]} s")
+
+        # distill: two processes sorting chunks into a shared checkpoint dir
+        import importlib.util
+
+        if importlib.util.find_spec("zstandard") is None:
+            # distill writes zstd runs and outputs; without the module it
+            # refuses to start, in one process as in two
+            out["distill_s"] = None
+            log("phase 8: distill not run: zstandard is not installed here (the CPU tests "
+                "hold the multi-host distill against the one-host one)")
+            return out
+        rec_bytes = 2 * READ_LEN + 7
+        for sub in ("mh", "one"):
+            os.makedirs(os.path.join(d, sub))
+            for f in ("p1", "p2"):
+                with open(paths[f], "rb") as src, \
+                        open(os.path.join(d, sub, f"{f}.fastq"), "wb") as dst:
+                    dst.write(src.read(N_DISTILL * rec_bytes))
+        port = free_port()
+        argv = [sys.executable, "-m", "barcoder_tpu_torch", "distill", "p1.fastq", "p2.fastq",
+                "--chunk-size", str(DISTILL_CHUNK)]
+        runs = [spawn_joined([argv + ["--checkpoint", os.path.join(d, "ckpt")]] * MH_PROCESSES,
+                             mh_envs(port)[:MH_PROCESSES], os.path.join(d, "mh"), MH_TIMEOUT_S),
+                spawn_joined([argv], mh_envs(port)[MH_PROCESSES:], os.path.join(d, "one"),
+                             MH_TIMEOUT_S)]
+        for rc, _stdout, stderr, _s in runs[0] + runs[1]:
+            if rc != 0:
+                raise AssertionError(f"phase 8 distill CLI failed:\n{stderr[-3000:]}")
+        spilled = [sorted(int(m) for m in re.findall(r"spilled chunk (\d+)", r[2]))
+                   for r in runs[0]]
+        for f in ("p1", "p2"):
+            if (zst_lines(os.path.join(d, "mh", f"{f}.reads.zst"))
+                    != zst_lines(os.path.join(d, "one", f"{f}.reads.zst"))):
+                raise AssertionError(f"phase 8 distill: {f} differs from the one-host distill")
+        if not all(spilled) or set(spilled[0]) & set(spilled[1]):
+            raise AssertionError(f"phase 8 distill: spilled chunks {spilled}")
+        out["distill_s"] = {"multihost": [r[3] for r in runs[0]], "one": runs[1][0][3]}
+        log(f"phase 8: distill of {N_DISTILL} pairs in {MH_PROCESSES} processes (chunks "
+            f"{spilled}) == one host; walls {out['distill_s']} s")
+    return out
 
 
 # --- kernel times (--kernel-times) --------------------------------------------
@@ -1958,9 +2279,14 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel-times", action="store_true",
                     help="only time the wgmma kernels (see kernel_times) and print one "
                          "JSON line")
+    ap.add_argument("--mh-worker", nargs=4, metavar=("PID", "PORT", "SPEC", "OUT"),
+                    help="run as one of phase 8's worker processes (phase8_worker)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
+    if args.mh_worker:
+        pid, port, spec, out = args.mh_worker
+        return phase8_worker(int(pid), int(port), spec, out)
     # site tables of this run only: one left on disk by an earlier run would
     # send request 1 to the site engine
     artifacts = tempfile.TemporaryDirectory(prefix="chip_smoke_artifacts_")
@@ -2002,7 +2328,10 @@ def main(argv=None) -> int:
     design = phase5b_design(rec, genome)
     experiments = phase6_experiment_kernels()
     entry_points = phase6_entry_points()
-    counting = phase7_counting()
+    count_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_count_")
+    counting, count_inputs = phase7_counting(count_dir.name)
+    multihost = phase8_multihost(rec, genome, libs, plants, cuda_hits, count_inputs, counting)
+    count_dir.cleanup()
     prof = None
     if args.profile:
         prof = {"targets": phase4_profile(genome, libs, args.profile),
@@ -2015,7 +2344,7 @@ def main(argv=None) -> int:
                     "phase5": sharded,
                     "phase5b_design": design, "phase6": experiments,
                     "phase6_entry_points": entry_points, "phase7_counting": counting,
-                    "profile": prof}))
+                    "phase8_multihost": multihost, "profile": prof}))
     # launches per path, each path's counts taken from 0 just before it
     by_path = {
         "scan_hits": {"targets_cuda": main_path["launches_dense"],
@@ -2024,7 +2353,9 @@ def main(argv=None) -> int:
                       "design": design["launches"],
                       "sharded": sharded["launches"]["scan_hits"],
                       "harness": sharded["harness_launches"]["scan_hits"],
-                      "phase1_bench": entry_points["phase1_bench"]["scan_hits"]},
+                      "phase1_bench": entry_points["phase1_bench"]["scan_hits"],
+                      "multihost": multihost["launches"],
+                      "graft": multihost["graft_launches"]},
         "scan_max": {"sharded": sharded["launches"]["scan_max"],
                      "harness": sharded["harness_launches"]["scan_max"],
                      "harness_block_max": sharded["harness_block_max"]["launches"]},

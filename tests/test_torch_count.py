@@ -22,6 +22,7 @@ import barcoder_tpu.pipeline.heuristic_count as jhc
 import barcoder_tpu_torch.pipeline.heuristic_count as thc
 from barcoder_tpu.cli.count import main as ref_cli
 from barcoder_tpu_torch.cli.count import main as port_cli
+from barcoder_tpu_torch.parallel.sharded_count import make_read_mesh
 
 from .genomes import random_seq
 from .test_heuristic_count import (
@@ -36,6 +37,7 @@ ENGINES = [
     ("jax_device", jhc, "device", {}),
     ("vector", thc, "vector", {}),
     ("device", thc, "device", {"device": "cpu"}),
+    ("sharded", thc, "sharded", {"mesh": make_read_mesh(devices=[torch.device("cpu")] * 3)}),
     ("reference", thc, "reference", {}),
 ]
 
@@ -160,13 +162,17 @@ def test_len40_falls_back_to_the_per_read_engine(tmp_path, engine):
 
 
 def test_len40_device_engine_raises(tmp_path):
-    """``engine="device"`` never counts on the host: over 32 nt it raises
-    where the JAX package falls back to the per-read engine."""
+    """``engine="device"`` (and ``"sharded"``) never counts on the host:
+    over 32 nt it raises where the JAX package falls back to the per-read
+    engine."""
     barcodes = make_barcodes(n=12, bc_len=40, seed=22)
     reads1, _, _ = make_reads(barcodes, n_reads=200, seed=22)
     f1, _ = _files(tmp_path, reads1)
     with pytest.raises(ValueError, match="<= 32 nt"):
         thc.run_count(set(barcodes), f1, engine="device", device="cpu")
+    with pytest.raises(ValueError, match="sharded engine requires barcodes <= 32 nt"):
+        thc.run_count(set(barcodes), f1, engine="sharded",
+                      mesh=make_read_mesh(devices=[torch.device("cpu")] * 2))
 
 
 def test_auto_is_the_device_engine(tmp_path, monkeypatch):
@@ -385,11 +391,11 @@ def read_files(tmp_path_factory):
 
 
 def _port_run(barcodes, f1, f2, engine, **kw):
-    extra = {"device": "cpu"} if engine == "device" else {}
+    extra = next(x for _, mod, e, x in ENGINES if mod is thc and e == engine)
     return thc.run_count(set(barcodes), f1, f2, chunk_size=256, engine=engine, **extra, **kw)
 
 
-@pytest.mark.parametrize("engine", ["vector", "device"])
+@pytest.mark.parametrize("engine", ["vector", "device", "sharded"])
 def test_checkpointed_run_matches_the_jax_package(tmp_path, read_files, engine):
     barcodes, f1, f2 = read_files
     ckpt = str(tmp_path / "counts.ckpt.npz")
@@ -399,7 +405,7 @@ def test_checkpointed_run_matches_the_jax_package(tmp_path, read_files, engine):
     assert not os.path.exists(ckpt)
 
 
-@pytest.mark.parametrize("engine", ["vector", "device"])
+@pytest.mark.parametrize("engine", ["vector", "device", "sharded"])
 def test_resume_from_partial_checkpoint(tmp_path, monkeypatch, read_files, engine):
     """Crash mid-stream after several checkpoints, resume: the counts equal
     the JAX package's uninterrupted run. A checkpoint taken while batches
@@ -514,7 +520,8 @@ def test_acc_spill_mid_stream(tmp_path, monkeypatch):
     fetches = []
     orig_fetch = thc.CudaCounter._fetch_acc
     monkeypatch.setattr(thc.CudaCounter, "_fetch_acc",
-                        lambda self: (fetches.append(self._acc is not None), orig_fetch(self)))
+                        lambda self: (fetches.append(any(a is not None for a in self._accs)),
+                                       orig_fetch(self)))
     barcodes = make_barcodes(n=25, seed=4)
     reads1, _, truth = make_reads(barcodes, n_reads=2500, seed=4)
     f1, _ = _files(tmp_path, reads1)
@@ -559,12 +566,26 @@ def test_dispatches_count_only_the_card():
 
 # --- what the port refuses ------------------------------------------------------
 
-def test_sharded_engine_raises(tmp_path):
+def test_sharded_engine_raises(tmp_path, monkeypatch):
+    """The sharded engine's default read mesh is the cards: without one it
+    raises, as every card engine does. Asked for the CPU (a CPU read mesh,
+    or set_platform("cpu") as BARCODER_TPU_PLATFORM=cpu does) it counts as
+    the host engine does."""
+    from barcoder_tpu_torch.parallel import mesh as port_mesh
+
     barcodes = make_barcodes(n=12, seed=2)
     reads1, _, _ = make_reads(barcodes, n_reads=200, seed=2)
     f1, _ = _files(tmp_path, reads1)
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 5"):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         thc.run_count(set(barcodes), f1, engine="sharded")
+    want = thc.run_count(set(barcodes), f1, engine="vector")
+    cpu_mesh = make_read_mesh(devices=[torch.device("cpu")] * 2)
+    got = thc.run_count(set(barcodes), f1, engine="sharded", mesh=cpu_mesh)
+    assert got[:3] == want[:3] and got[3]["engine"] == "sharded"
+    assert got[3]["owned_reads"] == 200
+    monkeypatch.setattr(port_mesh, "_platform", "cpu")
+    assert thc.run_count(set(barcodes), f1, engine="sharded")[:3] == want[:3]
 
 
 def test_device_counter_needs_cuda_unless_asked_for_the_cpu(monkeypatch):

@@ -807,3 +807,43 @@ def test_cuda_counter_spills_and_resumes(cuda, tmp_path, monkeypatch):
     got = hc.run_count(set(barcodes), f1, f2, chunk_size=256, engine="device",
                        checkpoint_path=ckpt, checkpoint_every=2)
     assert got[:3] == want[:3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["single", "paired_undocumented_n", "len32_high_keys"])
+def test_sharded_counter_on_two_shards_matches_cuda_counter(cuda, tmp_path, name):
+    """ShardedCounter on a read mesh of two shards of the card
+    (``[cuda:0] * 2``): each batch split over both shards' accumulators,
+    counts equal to CudaCounter's; both shards matched on the card."""
+    from barcoder_tpu_torch.parallel.sharded_count import make_read_mesh
+    from barcoder_tpu_torch.pipeline.heuristic_count import CudaCounter, run_count
+
+    from .test_torch_count import _case, _files
+
+    barcodes, reads1, reads2, truth = _case(name)
+    f1, f2 = _files(tmp_path, reads1, reads2)
+    want = run_count(set(barcodes), f1, f2, engine="device", chunk_size=512)
+    before = CudaCounter.dispatches
+    got = run_count(set(barcodes), f1, f2, engine="sharded", chunk_size=512,
+                    mesh=make_read_mesh(devices=[cuda] * 2))
+    assert got[3]["engine"] == "sharded" and got[:3] == want[:3]
+    assert CudaCounter.dispatches - before >= 2  # one per shard and batch
+    if truth is not None:
+        assert got[0] == truth
+
+
+@pytest.mark.gpu
+def test_graft_twin_on_the_card(cuda):
+    """The graft twin's entry() launches the scan_hits kernel and agrees
+    with its CPU run; dryrun_multichip(2) and (4) run on shards of the card."""
+    from barcoder_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    assert args[1].device.type == "cuda"
+    before = scan_hits.launches
+    got = fn(*args)
+    assert scan_hits.launches == before + 1
+    fn_cpu, args_cpu = graft_entry.entry(device="cpu")
+    assert torch.equal(got.cpu(), fn_cpu(*args_cpu)) and got.sum() >= 4
+    graft_entry.dryrun_multichip(2)
+    graft_entry.dryrun_multichip(4)

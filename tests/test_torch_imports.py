@@ -1,12 +1,14 @@
 """Import rules of the PyTorch port.
 
 * Importing ``barcoder_tpu_torch`` and running its ``targets``,
-  ``design``, ``count``, ``mismatch`` and ``distill`` CLIs, its class API,
-  ``run_count`` with the device engine on the CPU, its sharded engine (``sharded_scan_contigs``,
-  ``sharded_scan_many``) on a CPU mesh, its scaling harness and its
-  experiment entry points leaves ``jax`` and every module of the JAX
-  package ``barcoder_tpu`` out of ``sys.modules`` (checked in a fresh
-  interpreter, since this test process has imported both already).
+  ``design``, ``count``, ``mismatch``, ``distill`` and ``gui --help`` CLIs,
+  its class API, ``run_count`` with the device engine on the CPU and with
+  the sharded engine over two processes (``parallel.multihost``,
+  ``parallel.sharded_count``), its sharded engine (``sharded_scan_contigs``,
+  ``sharded_scan_many``) on a CPU mesh, its scaling harness, its graft
+  twin and its experiment entry points leaves ``jax`` and every module of
+  the JAX package ``barcoder_tpu`` out of ``sys.modules`` (checked in
+  fresh interpreters, since this test process has imported both already).
 * No import statement of the port or of ``chip_smoke.py``, at module level
   or inside a function, names ``barcoder_tpu``, ``jax`` or ``tests`` (whose
   helpers import the JAX package).
@@ -14,7 +16,9 @@
   originals in import lines only (exact line comparison), and the port's
   ``Phases`` and ``dump_summary`` are verbatim copies. Its partial copies
   (``pipeline/heuristic_count.py``, ``pipeline/distill.py``) share every
-  top-level definition with their originals but a named few.
+  top-level definition with their originals but a named few, and its GUI
+  launchers (``cli/gui_qt.py``, ``cli/gui_tk.py``) differ from theirs only
+  in the package their Run button spawns.
 """
 
 import ast
@@ -52,6 +56,7 @@ COPIES = {
     "cli/distill.py": "cli/distill.py",
     "model/__init__.py": "model/__init__.py",
     "model/mismatch.py": "model/mismatch.py",
+    "cli/gui.py": "cli/gui.py",
     **{f"core/{m}.py": f"core/{m}.py"
        for m in ("__init__", "encode", "genome", "pam", "coords", "locus")},
     **{f"seqio/{m}.py": f"seqio/{m}.py"
@@ -64,7 +69,14 @@ COPIES = {
 PARTIAL_COPIES = {
     "pipeline/heuristic_count.py": ("pipeline/heuristic_count.py",
                                     {"run_count", "_stream_counts"}),
-    "pipeline/distill.py": ("pipeline/distill.py", {"distill_reads"}),
+    "pipeline/distill.py": ("pipeline/distill.py", {"distill_reads", "_distill_multihost"}),
+}
+
+# port module -> the JAX package module it copies with the package it
+# spawns (``python -m barcoder_tpu``) renamed, and nothing else
+SPAWN_COPIES = {
+    "cli/gui_qt.py": "cli/gui_qt.py",
+    "cli/gui_tk.py": "cli/gui_tk.py",
 }
 
 # what a fresh interpreter reports after running the port: every loaded
@@ -269,6 +281,60 @@ def test_count_mismatch_distill_and_api_never_import_jax(tmp_path):
     assert (tmp_path / "r1.reads.zst").exists() and (tmp_path / "r2.reads.zst").exists()
 
 
+_MULTIHOST_PROBE = """
+import io, json, sys
+from contextlib import redirect_stdout
+import torch
+import barcoder_tpu_torch.parallel.multihost as multihost
+import barcoder_tpu_torch.parallel.sharded_count
+from barcoder_tpu_torch import graft_entry
+from barcoder_tpu_torch.cli.main import main
+from barcoder_tpu_torch.parallel.mesh import set_platform
+from barcoder_tpu_torch.pipeline.heuristic_count import run_count
+pid, port, lib, reads = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+buf = io.StringIO()
+with redirect_stdout(buf):
+    rc = main(["gui", "--help"])
+fn, args = graft_entry.entry(device="cpu")
+found = float(fn(*args).sum())
+graft_entry.dryrun_multichip(2, device="cpu")
+set_platform("cpu")
+joined = multihost.initialize(f"localhost:{port}", 2, pid)
+doc, undoc, total, info = run_count(lib, reads, chunk_size=256)
+print(json.dumps({"rc": rc, "gui_help": "--graphical" in buf.getvalue(), "found": found,
+                  "joined": joined, "engine": info["engine"], "total": total,
+                  "owned": info["owned_reads"], "jax": %s}))
+""" % _LOADED
+
+
+def test_multihost_gui_and_graft_never_import_jax(tmp_path):
+    """parallel.multihost, parallel.sharded_count, the gui command's help,
+    the graft twin and a two-process (gloo) run_count, in fresh
+    interpreters: no jax, and the two processes' owned reads cover the
+    reads once."""
+    from barcoder_tpu_torch.parallel.multihost import free_port, spawn_joined
+
+    from .test_heuristic_count import make_barcodes, write_run_count_fastq
+
+    barcodes = make_barcodes(n=10, seed=2)
+    write_run_count_fastq(tmp_path / "reads.fastq", barcodes)
+    (tmp_path / "lib.fasta").write_text("".join(f">b{i}\n{b}\n" for i, b in enumerate(barcodes)))
+    port = free_port()
+    runs = spawn_joined([[sys.executable, "-c", _MULTIHOST_PROBE, str(pid), str(port),
+                          str(tmp_path / "lib.fasta"), str(tmp_path / "reads.fastq")]
+                         for pid in range(2)], [_probe_env(tmp_path)] * 2, tmp_path, 240)
+    reports = []
+    for rc, stdout, stderr, _s in runs:
+        assert rc == 0, stderr[-2000:]
+        reports.append(json.loads(stdout.strip().splitlines()[-1]))
+    for r in reports:
+        assert {k: r[k] for k in ("rc", "gui_help", "joined", "engine", "total", "jax")} == {
+            "rc": 0, "gui_help": True, "joined": True, "engine": "sharded", "total": 1500,
+            "jax": []}
+        assert r["found"] >= 4
+    assert sum(r["owned"] for r in reports) == 1500 and all(r["owned"] for r in reports)
+
+
 def _without_imports(path: Path) -> list[str]:
     """Source lines of a module, less every line of an import statement."""
     src = path.read_text()
@@ -284,6 +350,18 @@ def test_copied_modules_differ_only_in_imports(port, original):
     got = _without_imports(REPO / "barcoder_tpu_torch" / port)
     want = _without_imports(REPO / "barcoder_tpu" / original)
     assert got == want
+
+
+@pytest.mark.parametrize("port,original", sorted(SPAWN_COPIES.items()))
+def test_gui_launchers_spawn_the_port(port, original):
+    """The graphical launchers are the JAX package's, word for word, but
+    for the module their Run button spawns."""
+    got = (REPO / "barcoder_tpu_torch" / port).read_text()
+    want = (REPO / "barcoder_tpu" / original).read_text()
+    spawn = '[sys.executable, "-m", "barcoder_tpu", *argv]'
+    assert want.count(spawn) == 1
+    assert got == want.replace(spawn, spawn.replace("barcoder_tpu", "barcoder_tpu_torch")).replace(
+        "``python -m barcoder_tpu <argv>``", "``python -m barcoder_tpu_torch <argv>``")
 
 
 def _definitions(path: Path) -> dict[str, str]:

@@ -102,3 +102,26 @@ def test_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
         scaling.measure_scaling(n_bp=4096, n_spacers=8, repeats=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         scaling.main(["4096", "8"])
+
+
+@pytest.mark.parametrize("workload", ["scan", "count"])
+def test_multihost_harness_on_cpu_shards(workload):
+    """measure_multihost with two worker processes of 2 CPU shards each
+    (``--device cpu``): every process saw the same hits or counts, the scan
+    equals this process's one-process sharded scan, and the owned reads
+    cover the count's reads once. The walls mean nothing here."""
+    from barcoder_tpu_torch.parallel.mesh import make_mesh
+    from barcoder_tpu_torch.parallel.sharded_scan import sharded_scan
+
+    r = scaling.measure_multihost(1 << 15, 64, 2, devices_per_process=2, P=1024, repeats=1,
+                                  force_cpu=True, workload=workload, timeout_s=240)
+    assert r["processes"] == 2 and r["global_devices"] == 4 and r["platform"] == "cpu"
+    assert len(r["per_process_seconds"]) == 2 and "mechanics" in r["note"]
+    if workload == "scan":
+        contig, spacers = scaling._make_workload(1 << 15, 64, 20)
+        want = sharded_scan(spacers, contig, 1, pam="NGG", mesh=make_mesh(devices=CPU * 4),
+                            P=1024)
+        assert r["hit_sets_identical"] and r["hits"] == len(want) > 0
+    else:
+        assert r["counts_identical"] and r["owned_covers_stream"]
+        assert all(n > 0 for n in r["owned_reads"]) and sum(r["owned_reads"]) == r["reads"]
