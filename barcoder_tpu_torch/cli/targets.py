@@ -16,6 +16,7 @@ import argparse
 import os
 import platform
 import sys
+import time
 from datetime import datetime
 
 import rich.table
@@ -67,7 +68,7 @@ def build_parser(parser: argparse.ArgumentParser | None = None) -> argparse.Argu
                    choices=["auto", "cuda", "sharded", "torch", "oracle"])
     p.add_argument(
         "--profile", default=None, metavar="DIR",
-        help="Write a torch.profiler trace + phase timings to DIR",
+        help="Write a torch.profiler trace, phase timings and spans to DIR",
     )
     p.add_argument("--library-column", default="spacer", help="Barcode column for TSV libraries")
     return p
@@ -163,10 +164,11 @@ def main(argv=None) -> int:
         console.log("Loading genome and annotations...")
         genome = Genome.load(args.genome_file)
 
-        from ..utils.profiling import Phases, device_trace, dump_summary
+        from ..utils.profiling import Phases, device_trace, dump_spans, dump_summary
 
         phases = Phases()
         console.log("Scanning genome on device...")
+        t0_ns = time.time_ns()
         with device_trace(args.profile):
             result = run_targets(
                 library,
@@ -183,7 +185,8 @@ def main(argv=None) -> int:
             )
         if args.profile:
             dump_summary(phases, os.path.join(args.profile, "phases.json"))
-            console.log(f"Wrote device trace + phase timings to {args.profile}")
+            dump_spans(os.path.join(args.profile, "spans.json"), since_ns=t0_ns)
+            console.log(f"Wrote device trace, phase timings and spans to {args.profile}")
 
         if args.json:
             console.log("Writing to JSON...")

@@ -31,6 +31,7 @@ from ..core.genome import Genome
 from ..ops.prep import build_scan_array, site_masks
 from ..pipeline.targets import TargetsResult, run_targets
 from ..seqio.library import BarcodeLibrary
+from ..utils.profiling import span
 
 
 def is_dna(sequence: str) -> bool:
@@ -377,19 +378,28 @@ def run_design(
 
     sgrna_out persists the enumerated candidates as a ``>seq\\nseq`` FASTA
     BEFORE the scan stage — the reference's durable sgRNA.fasta intermediate
-    (design_guides.py:53-56,82), so the library survives a failed scan."""
+    (design_guides.py:53-56,82), so the library survives a failed scan.
+
+    The call is the recorder's ``design`` span (utils.profiling.span), with
+    ``design.enumerate`` (candidates, the FASTA, the library), the targets
+    stage's own ``targets`` span and ``design.filter`` inside it."""
     opts = (opts or DesignOptions()).resolve(barcode_length)
-    candidates = find_candidate_guides(genome, barcode_length, pam, opts.pam_direction)
-    if log:
-        log.info(f"Found {len(candidates):,} potential guides in the genome")
-    if sgrna_out:
-        write_sgrna_fasta(candidates, sgrna_out)
-    # name = sequence, like create_sgRNA_fasta (design_guides.py:53-56);
-    # candidates are already unique + normalized (find_candidate_guides)
-    library = BarcodeLibrary.from_unique_list(candidates)
-    tr = run_targets(
-        library, genome, pam, opts.mismatches,
-        pam_direction=opts.pam_direction, backend=backend,
-    )
-    final = apply_design_filters(tr.table, barcode_length, opts, log=log)
+    with span("design"):
+        with span("design.enumerate"):
+            candidates = find_candidate_guides(
+                genome, barcode_length, pam, opts.pam_direction
+            )
+            if log:
+                log.info(f"Found {len(candidates):,} potential guides in the genome")
+            if sgrna_out:
+                write_sgrna_fasta(candidates, sgrna_out)
+            # name = sequence, like create_sgRNA_fasta (design_guides.py:53-56);
+            # candidates are already unique + normalized (find_candidate_guides)
+            library = BarcodeLibrary.from_unique_list(candidates)
+        tr = run_targets(
+            library, genome, pam, opts.mismatches,
+            pam_direction=opts.pam_direction, backend=backend,
+        )
+        with span("design.filter"):
+            final = apply_design_filters(tr.table, barcode_length, opts, log=log)
     return final, tr, candidates

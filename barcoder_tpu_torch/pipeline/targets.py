@@ -388,7 +388,10 @@ def run_targets(
     insDirection columns (insertCharacteristics.py); compat_columns emits
     the reference insertCharacteristics camelCase header (chrom /
     CRISPRtTarget / targStart / targEnd / targDir, no sp_dir); phases:
-    optional utils.profiling.Phases collector.
+    optional collector (utils.profiling.Phases, or any object with its
+    phase / count / summary) that receives the call's stages: prepare,
+    scan, annotate, assemble, postprocess. Each stage is also a span of
+    the recorder (utils.profiling.span) under the call's ``targets`` span.
 
     max_sites: Bowtie-parity reporting cap. The reference invokes bowtie
     with ``-k 100`` (targets.py:502, BowtieRunner.py:111-125), so its
@@ -398,122 +401,129 @@ def run_targets(
     for apples-to-apples diffs against real Bowtie output. Kept sites are
     the best N by (mismatches, contig order, pos, strand) — deterministic,
     unlike Bowtie's index-order tie-breaking without --best."""
-    from ..utils.profiling import Phases
+    from ..utils.profiling import Phases, span
 
     phases = phases if phases is not None else Phases()
-    # unique sequences per length; names expand after annotation. Libraries
-    # built with BarcodeLibrary.from_unique_list skip the 573k-entry dict
-    # bookkeeping entirely (design workload).
-    if getattr(library, "identity_unique", False):
-        all_seqs = [s for _, s in library.entries]
-        names_per_seq = None
-        identity_names = unique_rows = True
-    else:
-        names_per_seq = {}
-        for name, seq in library.entries:
-            names_per_seq.setdefault(seq, []).append(name)
-        all_seqs = list(names_per_seq)
-        identity_names = all(
-            len(v) == 1 and v[0] == k for k, v in names_per_seq.items()
-        )
-        # duplicate (name, seq) library entries are the one way the row
-        # frame can carry duplicates (the name merge expands them);
-        # everywhere else rows are unique by construction (see postprocess
-        # docstring)
-        unique_rows = identity_names or all(
-            len(v) == len(set(v)) for v in names_per_seq.values()
-        )
-    seq_arr = np.array(all_seqs, dtype=object)
-    lens = np.fromiter(map(len, all_seqs), np.int64, len(all_seqs))
-    by_len = {int(L): np.nonzero(lens == L)[0] for L in np.unique(lens)}
-
-    frames: list[pd.DataFrame] = []
-    # track hit spacers by global index — a string set over the row frame
-    # (unique + set.update) iterated 600k arrow values per call
-    seen_global = np.zeros(len(all_seqs), dtype=bool)
-    for L, idxs in sorted(by_len.items()):
-        seqs = seq_arr[idxs].tolist()
-        q_f = spacer_matrix(seqs)
-        q_r = revcomp_matrix(q_f)
-        seen = np.zeros(len(seqs), dtype=bool)
-        contig_hits: list[tuple] = []
-        # contigs shorter than the spacer are ineligible for BOTH
-        # topologies: linear ones cannot hold a window at all, and on a
-        # circular contig with L > length the multi-wrap hits the engine
-        # would find have no self-consistent folded coordinates (the
-        # single-subtraction fold in build_rows yields tar_end >= tar_start
-        # with wrap undetected) — the reference's bowtie path reports such
-        # reads unmapped, so dropping the contig is the faithful behavior
-        # (r5 review)
-        eligible = [c for c in genome.contigs if c.length >= L]
-        # one batched call per length group: multi-replicon genomes share
-        # the spacer prep and pipeline per-contig device work (ops.scan
-        # .scan_contigs) instead of paying each contig's round trips serially
-        with phases.phase("scan"):
-            hits_list = (
-                scan_contigs(
-                    seqs, eligible, mismatches, pam, pam_direction, backend
+    with span("targets"):
+        with span("targets.prepare", phases):
+            # unique sequences per length; names expand after annotation.
+            # Libraries built with BarcodeLibrary.from_unique_list skip the
+            # 573k-entry dict bookkeeping entirely (design workload).
+            if getattr(library, "identity_unique", False):
+                all_seqs = [s for _, s in library.entries]
+                names_per_seq = None
+                identity_names = unique_rows = True
+            else:
+                names_per_seq = {}
+                for name, seq in library.entries:
+                    names_per_seq.setdefault(seq, []).append(name)
+                all_seqs = list(names_per_seq)
+                identity_names = all(
+                    len(v) == 1 and v[0] == k for k, v in names_per_seq.items()
                 )
-                if eligible  # an empty group must not build library prep
-                else []
+                # duplicate (name, seq) library entries are the one way the
+                # row frame can carry duplicates (the name merge expands
+                # them); everywhere else rows are unique by construction
+                # (see postprocess docstring)
+                unique_rows = identity_names or all(
+                    len(v) == len(set(v)) for v in names_per_seq.values()
+                )
+            seq_arr = np.array(all_seqs, dtype=object)
+            lens = np.fromiter(map(len, all_seqs), np.int64, len(all_seqs))
+            by_len = {int(L): np.nonzero(lens == L)[0] for L in np.unique(lens)}
+
+        frames: list[pd.DataFrame] = []
+        # track hit spacers by global index — a string set over the row
+        # frame (unique + set.update) iterated 600k arrow values per call
+        seen_global = np.zeros(len(all_seqs), dtype=bool)
+        for L, idxs in sorted(by_len.items()):
+            with span("targets.prepare", phases):
+                seqs = seq_arr[idxs].tolist()
+                q_f = spacer_matrix(seqs)
+                q_r = revcomp_matrix(q_f)
+            seen = np.zeros(len(seqs), dtype=bool)
+            contig_hits: list[tuple] = []
+            # contigs shorter than the spacer are ineligible for BOTH
+            # topologies: linear ones cannot hold a window at all, and on a
+            # circular contig with L > length the multi-wrap hits the engine
+            # would find have no self-consistent folded coordinates (the
+            # single-subtraction fold in build_rows yields tar_end >=
+            # tar_start with wrap undetected) — the reference's bowtie path
+            # reports such reads unmapped, so dropping the contig is the
+            # faithful behavior
+            eligible = [c for c in genome.contigs if c.length >= L]
+            # one batched call per length group: multi-replicon genomes
+            # share the spacer prep and pipeline per-contig device work
+            # (ops.scan.scan_contigs) instead of paying each contig's round
+            # trips serially
+            with span("targets.scan", phases):
+                hits_list = (
+                    scan_contigs(
+                        seqs, eligible, mismatches, pam, pam_direction, backend
+                    )
+                    if eligible  # an empty group must not build library prep
+                    else []
+                )
+            for contig, hits in zip(eligible, hits_list):
+                phases.count("hits", len(hits))
+                contig_hits.append((contig, hits))
+            if max_sites is not None:
+                # the cap is per spacer across the WHOLE genome (Bowtie
+                # aligns each read against the full index), so apply it
+                # after all contigs of this length group have scanned
+                contig_hits = _cap_sites(contig_hits, max_sites)
+            for contig, hits in contig_hits:
+                with span("targets.annotate", phases):
+                    frame = build_rows(
+                        contig, hits, seqs, q_f, q_r, pam, pam_direction,
+                        gene_window=gene_window, insert_site=insert_site,
+                    )
+                if len(frame):
+                    seen[hits.spacer_idx] = True  # every hit emits >=1 row
+                    frames.append(frame)
+            seen_global[idxs[seen]] = True
+
+        with span("targets.assemble", phases):
+            # unmapped rows for spacers with no surviving hits, then expand
+            # per-name (reference gets one SAM stream per read name);
+            # library-order emission
+            unmapped = [
+                {"spacer": all_seqs[i], "len": int(lens[i])}
+                for i in np.nonzero(~seen_global)[0]
+            ]
+            if unmapped:
+                frames.append(pd.DataFrame(unmapped))
+            columns = ROW_COLUMNS if insert_site else ROW_COLUMNS[:-2]
+            body = (
+                pd.concat(frames, ignore_index=True)
+                if frames
+                # zero-entry library (API path; the CLI loader already
+                # rejects empty files): an empty frame WITH the schema so
+                # the name assignment/merge below and postprocess see their
+                # columns
+                else pd.DataFrame(columns=columns)
             )
-        for contig, hits in zip(eligible, hits_list):
-            phases.count("spacer_positions", 2 * len(seqs) * contig.length)
-            phases.count("hits", len(hits))
-            contig_hits.append((contig, hits))
-        if max_sites is not None:
-            # the cap is per spacer across the WHOLE genome (Bowtie aligns
-            # each read against the full index), so apply it after all
-            # contigs of this length group have scanned
-            contig_hits = _cap_sites(contig_hits, max_sites)
-        for contig, hits in contig_hits:
-            with phases.phase("annotate"):
-                frame = build_rows(
-                    contig, hits, seqs, q_f, q_r, pam, pam_direction,
-                    gene_window=gene_window, insert_site=insert_site,
+            if identity_names:
+                # identity naming (the design workload names candidates by
+                # their sequence): skip the string-keyed merge (~3 s at 600k
+                # rows)
+                results = body.copy()
+                results["name"] = results["spacer"]
+            else:
+                names_df = pd.DataFrame(
+                    [(name, seq) for seq, names in names_per_seq.items() for name in names],
+                    columns=["name", "spacer"],
                 )
-            if len(frame):
-                seen[hits.spacer_idx] = True  # every hit emits >=1 row
-                frames.append(frame)
-        seen_global[idxs[seen]] = True
-
-    # unmapped rows for spacers with no surviving hits, then expand per-name
-    # (reference gets one SAM stream per read name); library-order emission
-    unmapped = [
-        {"spacer": all_seqs[i], "len": int(lens[i])}
-        for i in np.nonzero(~seen_global)[0]
-    ]
-    if unmapped:
-        frames.append(pd.DataFrame(unmapped))
-    columns = ROW_COLUMNS if insert_site else ROW_COLUMNS[:-2]
-    body = (
-        pd.concat(frames, ignore_index=True)
-        if frames
-        # zero-entry library (API path; the CLI loader already rejects
-        # empty files): an empty frame WITH the schema so the name
-        # assignment/merge below and postprocess see their columns
-        else pd.DataFrame(columns=columns)
-    )
-    if identity_names:
-        # identity naming (the design workload names candidates by their
-        # sequence): skip the string-keyed merge (~3 s at 600k rows)
-        results = body.copy()
-        results["name"] = results["spacer"]
-    else:
-        names_df = pd.DataFrame(
-            [(name, seq) for seq, names in names_per_seq.items() for name in names],
-            columns=["name", "spacer"],
-        )
-        results = body.merge(names_df, on="spacer", how="left")
-    results = results.reindex(columns=columns)
-    with phases.phase("postprocess"):
-        result = postprocess(
-            results, genome, pam, pam_direction, mismatches,
-            insert_site=insert_site, identity_names=identity_names,
-            assume_unique_rows=unique_rows, compat_columns=compat_columns,
-            gene_window=gene_window,
-        )
-    result.stats["profile"] = phases.summary()
+                results = body.merge(names_df, on="spacer", how="left")
+            results = results.reindex(columns=columns)
+        with span("targets.postprocess", phases):
+            result = postprocess(
+                results, genome, pam, pam_direction, mismatches,
+                insert_site=insert_site, identity_names=identity_names,
+                assume_unique_rows=unique_rows, compat_columns=compat_columns,
+                gene_window=gene_window,
+            )
+        result.stats["profile"] = phases.summary()
     return result
 
 

@@ -1,20 +1,37 @@
-"""Profiling for the port: the ``Phases`` collector and ``dump_summary``
-(verbatim copies of ``barcoder_tpu.utils.profiling``'s, held equal to them
-by tests/test_torch_imports.py), plus a ``torch.profiler`` device trace in
-place of the JAX package's ``jax.profiler`` one. The JAX package's
-``CompileStats`` listens to JAX compile events and has no counterpart here."""
+"""Profiling for the port: the ``Phases`` collector, the span recorder,
+``dump_summary`` (a verbatim copy of ``barcoder_tpu.utils.profiling``'s,
+held equal to it by tests/test_torch_imports.py) and a ``torch.profiler``
+device trace in place of the JAX package's ``jax.profiler`` one. The JAX
+package's ``CompileStats`` listens to JAX compile events and has no
+counterpart here.
+
+``Phases`` sums a call's phases by name. ``span`` records every stage of
+every call, always on, into one bounded in-memory ring: its name, its
+start and end in ``time.time_ns()`` nanoseconds (the Unix-epoch clock that
+``torch.profiler``'s trace stamps its events on, so a span lines up with
+the device's idle gaps), its id, its parent's and its root's ids (one root
+per entry-point call) and its thread. A span never waits on the device and
+emits no profiler range: it starts and ends where the code already
+waits."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import contextvars
+import itertools
 import json
 import os
+import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import asdict, dataclass, field
 
 import torch
 
-__all__ = ["Phases", "device_trace", "dump_summary"]
+__all__ = ["Phases", "Span", "device_trace", "dump_spans", "dump_summary", "dropped",
+           "span", "spans"]
+
+RING = 1 << 16  # spans the recorder keeps; older ones are dropped and counted
 
 
 @dataclass
@@ -35,25 +52,85 @@ class Phases:
     def count(self, name: str, value: float) -> None:
         self.counters[name] = self.counters.get(name, 0) + value
 
-    def rate(self, counter: str, phase: str) -> float | None:
-        t = self.timings.get(phase)
-        c = self.counters.get(counter)
-        if not t or c is None:
-            return None
-        return c / t
-
     def summary(self) -> dict:
-        out = {"timings_s": dict(self.timings), "counters": dict(self.counters)}
-        rates = {}
-        if "spacer_positions" in self.counters and "scan" in self.timings:
-            rates["spacer_positions_per_s"] = self.rate("spacer_positions", "scan")
-        if "reads" in self.counters and "count" in self.timings:
-            rates["reads_per_s"] = self.rate("reads", "count")
-        out["rates"] = rates
-        return out
+        return {"timings_s": dict(self.timings), "counters": dict(self.counters)}
 
-    def log(self, logger) -> None:
-        logger.json(self.summary())
+
+@dataclass(slots=True)
+class Span:
+    """One recorded stage; ``end_ns`` is None until it ends."""
+
+    name: str
+    start_ns: int
+    end_ns: int | None
+    id: int
+    parent: int | None
+    root: int
+    thread: int
+
+
+class Recorder:
+    """The ring of ended spans, oldest first, and how many fell out of it."""
+
+    def __init__(self, maxlen: int = RING):
+        self.ring: collections.deque = collections.deque(maxlen=maxlen)
+        self.dropped = 0
+        self._lock = threading.Lock()
+
+    def add(self, s: Span) -> None:
+        with self._lock:
+            if len(self.ring) == self.ring.maxlen:
+                self.dropped += 1
+            self.ring.append(s)
+
+    def spans(self) -> list:
+        with self._lock:
+            return list(self.ring)
+
+
+RECORDER = Recorder()
+_ids = itertools.count(1)
+_current: contextvars.ContextVar = contextvars.ContextVar("barcoder_tpu_torch_span",
+                                                          default=None)
+
+
+@contextlib.contextmanager
+def span(name: str, phases=None):
+    """Record the enclosed stage as a span named ``name`` under the
+    innermost open span of this context. With a collector (``phases=``)
+    the stage is also its phase named by the span name's last part
+    (``targets.scan`` → ``scan``); nothing but ``phase`` is called on it."""
+    parent = _current.get()
+    sid = next(_ids)
+    s = Span(name, time.time_ns(), None, sid, parent.id if parent else None,
+             parent.root if parent else sid, threading.get_ident())
+    token = _current.set(s)
+    try:
+        if phases is None:
+            yield s
+        else:
+            with phases.phase(name.rpartition(".")[2]):
+                yield s
+    finally:
+        _current.reset(token)
+        s.end_ns = time.time_ns()
+        RECORDER.add(s)
+
+
+def spans() -> list:
+    """The recorder's ended spans, in the order they ended."""
+    return RECORDER.spans()
+
+
+def dropped() -> int:
+    """How many spans fell out of the ring since the process started."""
+    return RECORDER.dropped
+
+
+def dump_spans(path: str, since_ns: int = 0) -> None:
+    """The recorded spans that started at or after ``since_ns`` as JSON."""
+    with open(path, "w") as fh:
+        json.dump([asdict(s) for s in spans() if s.start_ns >= since_ns], fh, indent=2)
 
 
 @contextlib.contextmanager

@@ -9,6 +9,7 @@ plain version (``cuda_scan_contigs(device="cpu")``).
 """
 
 import io
+import json
 
 import numpy as np
 import pandas as pd
@@ -145,6 +146,15 @@ def test_cli_profile_writes_trace(cli_files, tmp_path, capsys):
     assert port_cli(args) == 0
     assert (prof / "trace.json").stat().st_size > 0
     assert "scan" in (prof / "phases.json").read_text()
+    # the recorder's spans of the call, on the trace's clock
+    spans = json.loads((prof / "spans.json").read_text())
+    (root,) = [s for s in spans if s["name"] == "targets"]
+    assert {s["name"] for s in spans} >= {"targets", "targets.prepare", "targets.scan",
+                                          "targets.annotate", "targets.assemble",
+                                          "targets.postprocess"}
+    assert all(s["root"] == root["id"] for s in spans)
+    assert all(root["start_ns"] <= s["start_ns"] <= s["end_ns"] <= root["end_ns"]
+               for s in spans)
 
 
 def test_cuda_backend_raises_without_cuda(monkeypatch):
