@@ -20,21 +20,31 @@ including its output quirks:
   - spacers whose every site failed PAM collapse to a single non-targeting
     row per input name (flip-to-unmapped at targets.py:350-352 +
     filter_offtargets_by_pam at targets.py:542-544).
+
+From the scan's hits to the finished tables the row table is keyed by
+integers: spacer index, contig, tar_start / tar_end, strand, locus entry.
+Every sort, dedup, join and aggregate runs on them, and each string column
+is built once, in the final row order, from a contiguous byte buffer or by
+a gather from a small table (contig ids, locus tags, notes). The frames are
+those of the pandas formulation, dtypes and index included.
 """
 
 from __future__ import annotations
 
+import weakref
+from collections import Counter
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import pandas as pd
 from numpy.lib.stride_tricks import sliding_window_view
 
 from ..core.coords import fold_hit_coords_vec, get_coords, get_diff
-from ..core.encode import COMP_ASCII, DECODE_ASCII
+from ..core.encode import _COMP, _LUT, COMP_ASCII, DECODE_ASCII
 from ..core.genome import Contig, Genome
 from ..core.pam import pam_is_trivial, pam_window_start
-from ..ops.prep import build_scan_array, revcomp_matrix, spacer_matrix
+from ..ops.prep import build_scan_array
 from ..ops.scan import scan_contigs
 from ..ops.types import STRAND_R, Hits
 from ..seqio.library import BarcodeLibrary
@@ -47,46 +57,34 @@ class TargetsResult:
     stats: dict
 
 
-def _decode_rows(mat_ascii: np.ndarray) -> list[str]:
-    """(H, L) uint8 ascii → list of strings."""
-    if mat_ascii.size == 0:
-        return []
-    H, L = mat_ascii.shape
-    flat = np.ascontiguousarray(mat_ascii).view(f"S{L}").ravel()
-    return [b.decode("ascii") for b in flat]
-
-
-def _target_strings(
-    contig: Contig, hits: Hits, q_f: np.ndarray, q_r: np.ndarray
-) -> list[str]:
-    """Reconstructed target sequences: genome window in spacer orientation,
-    mismatched bases lowercased (reference: targets.py:371-376 via pysam)."""
+def _target_ascii(contig: Contig, hits: Hits, q_f: np.ndarray) -> np.ndarray:
+    """(H, L) uint8 ASCII of the reconstructed targets: genome window in
+    spacer orientation, mismatched bases lowercased (reference:
+    targets.py:371-376 via pysam). R-strand windows are reverse-complemented
+    as codes, so every row compares with its spacer's forward codes."""
     L = q_f.shape[1]
     scan = build_scan_array(contig, L)
-    windows = sliding_window_view(scan, L)[hits.pos]  # (H, L) codes
-    q = np.where(hits.strand[:, None] == STRAND_R, q_r[hits.spacer_idx], q_f[hits.spacer_idx])
-    match = (windows == q) & (windows < 4) & (q < 4)
-    ascii_mat = DECODE_ASCII[np.clip(windows, 0, 4)].copy()
-    ascii_mat[~match] += 32  # lowercase mismatches
-    # R-strand rows: reverse complement preserving case
+    windows = np.clip(sliding_window_view(scan, L)[hits.pos], 0, 4)  # (H, L) codes
     rmask = hits.strand == STRAND_R
     if rmask.any():
-        rc = COMP_ASCII[ascii_mat[rmask]][:, ::-1]
-        ascii_mat[rmask] = rc
-    return _decode_rows(ascii_mat)
+        windows[rmask] = _COMP[windows[rmask]][:, ::-1]
+    q = q_f[hits.spacer_idx]
+    ascii_mat = DECODE_ASCII[windows]
+    ascii_mat[(windows != q) | (windows == 4) | (q >= 4)] += 32  # lowercase mismatches
+    return ascii_mat
 
 
-def _pam_strings(contig: Contig, hits: Hits, L: int, pam: str, direction: str) -> list:
-    """Extracted PAM windows per hit (vectorized, with circular wrap). Hits
-    have already passed the PAM site mask, so windows are in-bounds."""
+def _pam_ascii(contig: Contig, hits: Hits, L: int, pam: str, direction: str) -> np.ndarray | None:
+    """(H, m) uint8 ASCII of each hit's PAM window (vectorized, with
+    circular wrap); None for a trivial PAM, whose column is null. Hits have
+    already passed the PAM site mask, so windows are in-bounds."""
     if pam_is_trivial(pam):
-        return [None] * len(hits)
+        return None
     m = len(pam)
     n = contig.length
     # shared 4-way placement rule (core.pam.pam_window_start) — one source
     # of truth with extract_pam
-    starts = pam_window_start(hits.pos, L, m, hits.strand == STRAND_R,
-                              direction)
+    starts = pam_window_start(hits.pos, L, m, hits.strand == STRAND_R, direction)
     idx = starts[:, None] + np.arange(m)[None, :]
     if contig.circular:
         idx = idx % n
@@ -95,171 +93,139 @@ def _pam_strings(contig: Contig, hits: Hits, L: int, pam: str, direction: str) -
     rmask = hits.strand == STRAND_R
     if rmask.any():
         ascii_mat[rmask] = COMP_ASCII[ascii_mat[rmask]][:, ::-1]
-    return _decode_rows(ascii_mat)
+    return ascii_mat
+
+
+def _intern(values: list) -> tuple[list, np.ndarray]:
+    """(the distinct values other than None, in first-seen order; each
+    value's index among them, -1 for None)."""
+    ids: dict = {}
+    codes = np.fromiter((-1 if v is None else ids.setdefault(v, len(ids)) for v in values),
+                        np.int64, len(values))
+    return list(ids), codes
+
+
+class _Entries:
+    """A locus index's entries as the rows need them, built once per index:
+    ``tag`` / ``gene`` ids into ``tags`` / ``genes`` (-1 for None; the gene
+    column shows the locus tag where a gene has no name), ``start``,
+    ``end``, ``strand`` (0 for None), and ``sig``, the signature ids of the
+    set-semantics dedup (None when no two entries share a signature)."""
+
+    def __init__(self, entries: list):
+        n = len(entries)
+        self.tags, self.tag = _intern([e.locus_tag for e in entries])
+        self.genes, self.gene = _intern([e.gene if e.gene else e.locus_tag for e in entries])
+        self.start = np.fromiter((e.start for e in entries), np.int64, n)
+        self.end = np.fromiter((e.end for e in entries), np.int64, n)
+        self.strand = np.fromiter(
+            (e.strand if e.strand is not None else 0 for e in entries), np.int64, n)
+        # the reference's aligned_genes set (targets.py:412-416) compares
+        # (locus_tag, gene, start, end, strand) by their text
+        sigs: dict = {}
+        sig = np.fromiter(
+            (sigs.setdefault((str(e.locus_tag), str(e.gene), e.start, e.end, str(e.strand)),
+                             len(sigs)) for e in entries), np.int64, n)
+        self.sig = None if len(sigs) == n else sig
+
+
+_ENTRIES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _entries(index) -> _Entries:
+    """The entry table of a locus index, kept as long as the index lives
+    (a resident genome's indexes, and so its tables, live across calls)."""
+    table = _ENTRIES.get(index)
+    if table is None:
+        table = _ENTRIES[index] = _Entries(index.entries)
+    return table
+
+
+@dataclass
+class RowBlock:
+    """One contig's hits as rows keyed by integers (``build_rows``).
+
+    Per hit: ``spacer`` (index into the spacer list of the call), the
+    folded ``tar_start`` / ``tar_end``, ``strand``, ``mismatches``, and the
+    ASCII of its ``target`` (H, L) and ``pam`` (H, m; None for a trivial
+    PAM). Per row: ``hit``, ``entry`` (into ``entries``; -1 where the hit
+    is in no gene), ``offset``, ``overlap``. Rows [0, n_un) are the
+    unannotated hits in hit order, then one row per (hit, entry signature)
+    in join order."""
+
+    contig: Contig
+    entries: _Entries
+    spacer: np.ndarray
+    tar_start: np.ndarray
+    tar_end: np.ndarray
+    strand: np.ndarray
+    mismatches: np.ndarray
+    target: np.ndarray
+    pam: np.ndarray | None
+    hit: np.ndarray
+    entry: np.ndarray
+    offset: np.ndarray
+    overlap: np.ndarray
+    n_un: int
 
 
 def build_rows(
     contig: Contig,
     hits: Hits,
-    seqs: list[str],
     q_f: np.ndarray,
-    q_r: np.ndarray,
     pam: str,
     pam_direction: str,
     gene_window: str = "body",
-    insert_site: bool = False,
-) -> pd.DataFrame:
-    """Expand device hits into a reference-schema row frame (one row per
+) -> RowBlock | None:
+    """Expand device hits into reference-schema rows (one row per
     overlapping gene, or one with null annotation), mirroring
-    parse_sam_output (targets.py:354-462) — fully vectorized so the design
-    workload's ~10^6 hit rows assemble in numpy, not a Python loop.
+    parse_sam_output (targets.py:354-462), as integer columns and ASCII
+    matrices: no string is made here (``postprocess`` builds the columns).
+    None for no hits.
 
     gene_window="upstream" joins hits against promoter windows instead of
-    gene bodies (targets_in_upstream.py); insert_site=True adds the CRISPRt
-    transposon insertion-site columns — insertion 49 bp downstream of the
-    target end (F) / upstream of the start (R), mod chromosome length
-    (insertCharacteristics.py:482-486)."""
+    gene bodies (targets_in_upstream.py)."""
     H = len(hits)
     if H == 0:
-        return pd.DataFrame()
+        return None
     L = q_f.shape[1]
-    n = contig.length
     # shared fold-quirk implementation (core.coords): tar_end == 0 with a
     # negative tar_start for hits ending exactly at the origin
-    tar_start, tar_end = fold_hit_coords_vec(hits.pos, L, n)
-    wrap = tar_start < 0
-
-    targets = np.array(_target_strings(contig, hits, q_f, q_r), dtype=object)
-    pams = np.array(_pam_strings(contig, hits, L, pam, pam_direction), dtype=object)
-    sp_dirs = np.where(hits.strand == STRAND_R, "R", "F")
-    seq_arr = np.array(seqs, dtype=object)
-    spacers = seq_arr[hits.spacer_idx]
-    mm = hits.mismatches.astype(np.int64)
-
-    coords = np.empty(H, dtype=object)
-    plain = ~wrap
-    ts_p = tar_start[plain]
-    te_p = tar_end[plain]
-    coords[plain] = [f"{a}..{b}" for a, b in zip(ts_p.tolist(), te_p.tolist())]
-    if wrap.any():
-        coords[wrap] = [
-            get_coords(int(a), int(b), n)
-            for a, b in zip(tar_start[wrap], tar_end[wrap])
-        ]
-
-    diffs = np.full(H, None, dtype=object)
-    mm_rows = np.nonzero(mm > 0)[0]
-    for i in mm_rows.tolist():
-        diffs[i] = get_diff(spacers[i], targets[i])
-
+    tar_start, tar_end = fold_hit_coords_vec(hits.pos, L, contig.length)
     index = (
         contig.upstream_locus_index() if gene_window == "upstream" else contig.locus_index()
     )
+    entries = _entries(index)
     hit_idx, entry_idx = index.join(tar_start, tar_end)
-    # set semantics per hit: drop duplicate (tag, gene, coords, strand)
-    # tuples like the reference's aligned_genes set (targets.py:412-416)
-    if len(hit_idx):
-        # signature ids over the (small) entry table, then one int64 unique
-        # over the pairs — the object-string pair_key unique measured ~2 s
-        # at design scale (600k pairs)
-        sig_keys = np.array(
-            [
-                "\x00".join(
-                    map(str, (e.locus_tag, e.gene, e.start, e.end, e.strand))
-                )
-                for e in index.entries  # the list entry_idx indexes
-            ],
-            dtype=object,
-        )
-        _, sig_ids = np.unique(sig_keys, return_inverse=True)
-        n_sigs = int(sig_ids.max()) + 1 if len(sig_ids) else 1
-        pair_key = hit_idx.astype(np.int64) * n_sigs + sig_ids[entry_idx]
-        _, uniq = np.unique(pair_key, return_index=True)
-        uniq.sort()
-        hit_idx, entry_idx = hit_idx[uniq], entry_idx[uniq]
+    if len(hit_idx) and entries.sig is not None:
+        # set semantics per hit: drop duplicate (tag, gene, coords, strand)
+        # tuples like the reference's aligned_genes set (targets.py:412-416)
+        pair_key = hit_idx * (int(entries.sig.max()) + 1) + entries.sig[entry_idx]
+        _, first = np.unique(pair_key, return_index=True)
+        first.sort()
+        hit_idx, entry_idx = hit_idx[first], entry_idx[first]
+    annotated = np.zeros(H, dtype=bool)
+    annotated[hit_idx] = True
+    un_idx = np.flatnonzero(~annotated)
 
-    base_cols = {
-        "spacer": spacers,
-        "len": np.full(H, L, dtype=np.int64),
-        "target": targets,
-        "mismatches": mm,
-        "chr": np.full(H, contig.id, dtype=object),
-        "tar_start": tar_start,
-        "tar_end": tar_end,
-        "sp_dir": sp_dirs.astype(object),
-        "pam": pams,
-        "coords": coords,
-        "type": np.where(mm > 0, "mismatch", "perfect").astype(object),
-        "diff": diffs,
-    }
-    if insert_site:
-        base_cols["insSite"] = np.where(
-            hits.strand == STRAND_R, (tar_start - 49) % n, (tar_end + 49) % n
-        )
-        base_cols["insDirection"] = sp_dirs.astype(object)
-
-    entries = index.entries  # same list entry_idx was built over
-    annotated_mask = np.zeros(H, dtype=bool)
-    annotated_mask[hit_idx] = True
-    un_idx = np.nonzero(~annotated_mask)[0]
-
-    frames = []
-    if len(un_idx):
-        d = {k: v[un_idx] for k, v in base_cols.items()}
-        d["locus_tag"] = np.full(len(un_idx), None, dtype=object)
-        d["gene"] = np.full(len(un_idx), None, dtype=object)
-        d["offset"] = np.full(len(un_idx), np.nan)
-        d["overlap"] = np.full(len(un_idx), np.nan)
-        d["tar_dir"] = np.full(len(un_idx), None, dtype=object)
-        frames.append(pd.DataFrame(d))
-    if len(hit_idx):
-        e_tag = np.array([e.locus_tag for e in entries], dtype=object)
-        e_gene = np.array(
-            [e.gene if e.gene else e.locus_tag for e in entries], dtype=object
-        )
-        e_start = np.array([e.start for e in entries], dtype=np.int64)
-        e_end = np.array([e.end for e in entries], dtype=np.int64)
-        e_strand = np.array(
-            [e.strand if e.strand is not None else 0 for e in entries], dtype=np.int64
-        )
-        fs = e_start[entry_idx]
-        fe = e_end[entry_idx]
-        fstrand = e_strand[entry_idx]
-        ts = tar_start[hit_idx]
-        te = tar_end[hit_idx]
-        tar_dir = np.where(fstrand == 1, "F", np.where(fstrand == -1, "R", None)).astype(object)
-        offset = np.where(fstrand == 1, ts - fs, np.where(fstrand == -1, fe - te, 0)).astype(float)
-        offset[fstrand == 0] = np.nan
-        ov = np.minimum(te, fe) - np.maximum(ts, fs)
-        overlap = np.maximum(ov, 0).astype(float)
-        d = {k: v[hit_idx] for k, v in base_cols.items()}
-        d["locus_tag"] = e_tag[entry_idx]
-        d["gene"] = e_gene[entry_idx]
-        d["offset"] = offset
-        d["overlap"] = overlap
-        d["tar_dir"] = tar_dir
-        frames.append(pd.DataFrame(d))
-    return pd.concat(frames, ignore_index=True) if frames else pd.DataFrame()
-
-
-def filter_offtargets_by_pam(df: pd.DataFrame) -> pd.DataFrame:
-    """Drop non-targeting rows of spacers that have targets
-    (reference: targets.py:542-544). Runs on factorized codes — the
-    string-column unique+isin pair measured ~10 s at design scale.
-
-    NaN-spacer rows are always kept; the reference's ``isin(targeting)``
-    would also drop a NaN-spacer/NaN-target row when some other NaN-spacer
-    row has a target (NaN matches NaN in isin) — a pandas quirk no real
-    library can produce (spacers come from sequences), deliberately not
-    reproduced."""
-    if len(df) == 0:
-        return df
-    codes, _ = pd.factorize(df["spacer"], use_na_sentinel=True)
-    has_target = np.zeros(max(int(codes.max()), 0) + 2, dtype=bool)
-    t_codes = codes[df["target"].notna().to_numpy()]
-    has_target[t_codes[t_codes >= 0]] = True
-    drop = df["target"].isna().to_numpy() & (codes >= 0) & has_target[np.clip(codes, 0, None)]
-    return df[~drop]
+    fs, fe = entries.start[entry_idx], entries.end[entry_idx]
+    fstrand = entries.strand[entry_idx]
+    ts, te = tar_start[hit_idx], tar_end[hit_idx]
+    offset = np.where(fstrand == 1, ts - fs, np.where(fstrand == -1, fe - te, 0)).astype(float)
+    offset[fstrand == 0] = np.nan
+    overlap = np.maximum(np.minimum(te, fe) - np.maximum(ts, fs), 0).astype(float)
+    unset = np.full(len(un_idx), np.nan)
+    return RowBlock(
+        contig=contig, entries=entries, spacer=np.asarray(hits.spacer_idx, np.int64),
+        tar_start=tar_start, tar_end=tar_end, strand=hits.strand,
+        mismatches=hits.mismatches.astype(np.int64),
+        target=_target_ascii(contig, hits, q_f),
+        pam=_pam_ascii(contig, hits, L, pam, pam_direction),
+        hit=np.concatenate([un_idx, hit_idx]),
+        entry=np.concatenate([np.full(len(un_idx), -1, np.int64), entry_idx]),
+        offset=np.concatenate([unset, offset]), overlap=np.concatenate([unset, overlap]),
+        n_un=len(un_idx),
+    )
 
 
 def create_note(row) -> str:
@@ -276,35 +242,358 @@ def create_note(row) -> str:
     return ", ".join(parts)
 
 
-def build_notes(note: pd.DataFrame) -> np.ndarray:
-    """Vectorized create_note over the whole (sites, genes, intergenic)
-    frame. The count triples have tiny cardinality (~hundreds of combos at
-    design scale), so dedupe the combos, format each once, and map back —
-    both the row apply (~5.6 s/125k) and per-element np.char (~9 s/573k)
-    measured far slower."""
-    mat = note[["sites", "genes", "intergenic"]].to_numpy(dtype=np.int64)
-    if len(mat) == 0:
-        return np.array([], dtype=object)
+def _note_texts(counts: np.ndarray) -> tuple[list, np.ndarray]:
+    """create_note over the rows of an (n, 3) int64 (sites, genes,
+    intergenic) matrix: the distinct notes and each row's index among them.
+    The count triples have tiny cardinality (~hundreds of combos at design
+    scale), so each combo is formatted once — the row apply (~5.6 s/125k)
+    and per-element np.char (~9 s/573k) measured far slower."""
+    if len(counts) == 0:
+        return [], np.zeros(0, np.int64)
     # pack the triple into one int64 when the counts fit (they always do in
     # practice; the axis=0 void-view unique measured ~1.5 s at design scale)
-    b1 = int(mat[:, 1].max()).bit_length()
-    b2 = int(mat[:, 2].max()).bit_length()
-    if int(mat[:, 0].max()).bit_length() + b1 + b2 <= 62:
-        key = (mat[:, 0] << (b1 + b2)) | (mat[:, 1] << b2) | mat[:, 2]
+    b1 = int(counts[:, 1].max()).bit_length()
+    b2 = int(counts[:, 2].max()).bit_length()
+    if int(counts[:, 0].max()).bit_length() + b1 + b2 <= 62:
+        key = (counts[:, 0] << (b1 + b2)) | (counts[:, 1] << b2) | counts[:, 2]
         uk, inv = np.unique(key, return_inverse=True)
         m2 = (np.int64(1) << b2) - 1
         m1 = (np.int64(1) << b1) - 1
         combos = np.stack([uk >> (b1 + b2), (uk >> b2) & m1, uk & m2], axis=1)
     else:  # pathological counts: fall back to the row-wise unique
-        combos, inv = np.unique(mat, axis=0, return_inverse=True)
-    texts = np.array(
-        [
-            create_note({"sites": s, "genes": g, "intergenic": i})
-            for s, g, i in combos
-        ],
-        dtype=object,
+        combos, inv = np.unique(counts, axis=0, return_inverse=True)
+    texts = [create_note({"sites": s, "genes": g, "intergenic": i}) for s, g, i in combos]
+    return texts, inv.reshape(-1)
+
+
+def _lex_rank(mat: np.ndarray) -> np.ndarray:
+    """Each row's place in the sorted order of the strings of a
+    null-padded (n, W) uint8 ASCII matrix of distinct strings (a string
+    before its extensions): the codes pd.factorize(..., sort=True) gives
+    them. Bytes are renumbered over the alphabet present, so a 20-nt ACGT
+    library sorts on one 64-bit key."""
+    n, w = mat.shape
+    present = np.zeros(256, dtype=bool)
+    present[mat.reshape(-1)] = True
+    code = (np.cumsum(present) - 1).clip(0).astype(np.uint64)
+    bits = max(int(present.sum()) - 1, 1).bit_length()
+    keys = []
+    for lo in range(0, max(w, 1), 64 // bits):
+        hi = min(lo + 64 // bits, w)
+        key = np.zeros(n, np.uint64)
+        for j in range(lo, hi):
+            key |= (code << np.uint64(bits * (hi - 1 - j)))[mat[:, j]]
+        keys.append(key)
+    # distinct strings have distinct keys, so any sort gives one order
+    order = np.lexsort(keys[::-1])
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n)
+    return rank
+
+
+def _first_codes(keys: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Ids of int64 ``keys`` in order of first appearance (pd.factorize's
+    codes, from its hash table), -1 where not ``valid``."""
+    codes = np.full(len(keys), -1, np.int64)
+    codes[valid] = pd.factorize(keys[valid])[0]
+    return codes
+
+
+_DIGITS4 = np.array([f"{i:04d}" for i in range(10_000)], "S4").view(np.uint32)
+
+
+def _digits(v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(n, 4G) uint8 ASCII digits of non-negative integers, right-aligned
+    with leading zeros (4-digit groups from a table), and each one's number
+    of digits."""
+    top = len(str(int(v.max()))) if len(v) else 1
+    groups = np.empty((len(v), -(-top // 4)), np.uint32)
+    rest = v
+    for k in range(groups.shape[1] - 1, -1, -1):
+        rest, low = np.divmod(rest, 10_000)
+        groups[:, k] = _DIGITS4[low]
+    n = 1 + np.searchsorted(10 ** np.arange(1, top, dtype=np.int64), v, side="right")
+    return groups.view(np.uint8).reshape(len(v), 4 * groups.shape[1]), n
+
+
+def _buffer(mat: np.ndarray, lens: np.ndarray | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """A text table as one flat buffer: (bytes, offsets), row i the first
+    ``lens[i]`` bytes of ``mat[i]`` (an (n, W) uint8 ASCII matrix; all W
+    where lens is None)."""
+    n, w = mat.shape
+    if lens is None or (lens == w).all():
+        return np.ascontiguousarray(mat).reshape(-1), np.arange(n + 1, dtype=np.int64) * w
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    return mat[np.arange(w) < lens[:, None]], offsets
+
+
+def _coords_buffer(start: np.ndarray, end: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The text table of "start..end" for non-negative starts and ends, built
+    from the integers: each row's significant digits around two dots."""
+    a, la = _digits(start)
+    b, lb = _digits(end)
+    wa = a.shape[1]
+    mat = np.empty((len(start), wa + 2 + b.shape[1]), np.uint8)
+    mat[:, :wa], mat[:, wa:wa + 2], mat[:, wa + 2:] = a, ord("."), b
+    # which columns a row keeps depends on its two digit counts alone: one
+    # pattern per pair, gathered by row
+    col, wb = np.arange(mat.shape[1]), b.shape[1]
+    ia, ib = np.meshgrid(np.arange(wa + 1), np.arange(wb + 1), indexing="ij")
+    patterns = (((col >= wa - ia.reshape(-1, 1)) & (col < wa + 2))
+                | (col >= mat.shape[1] - ib.reshape(-1, 1)))
+    keep = patterns[la * (wb + 1) + lb]
+    offsets = np.zeros(len(start) + 1, np.int64)
+    np.cumsum(la + 2 + lb, out=offsets[1:])
+    return mat[keep], offsets
+
+
+def _objects(data: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+    """The strings of a flat (bytes, offsets) buffer as an object array,
+    made by numpy from a null-padded matrix of the rows."""
+    lens = np.diff(offsets)
+    w = max(int(lens.max(initial=0)), 1)
+    mat = np.zeros((len(lens), w), np.uint8)
+    row = np.repeat(np.arange(len(lens)), lens)
+    mat[row, np.arange(len(data)) - offsets[:-1][row]] = data
+    return mat.view(f"S{w}").reshape(-1).astype(f"U{w}").astype(object)
+
+
+def _text_column(table, codes: np.ndarray, dtype, nulls: tuple = (), seg=None):
+    """The column whose row i is ``table[codes[i]]``, null where
+    codes[i] < 0, in ``dtype``. ``table`` is a list of strings, or a flat
+    (bytes, offsets) buffer, which a pyarrow string column takes whole with
+    no Python string per row. In an object column a null row holds the null
+    its frame of the pandas formulation leaves (``nulls[seg[i]]``: None,
+    or NaN where the frame's column was a string column or absent)."""
+    null = codes < 0
+    if isinstance(dtype, np.dtype) and dtype.kind == "f":  # a column no frame has
+        return np.full(len(codes), np.nan)
+    if isinstance(dtype, pd.StringDtype) and dtype.storage == "pyarrow":
+        import pyarrow as pa
+
+        if isinstance(table, list):
+            table = pa.array(table, type=pa.large_string())
+        else:
+            data, offsets = table
+            table = pa.LargeStringArray.from_buffers(
+                len(offsets) - 1, pa.py_buffer(offsets), pa.py_buffer(data))
+        return pd.arrays.ArrowStringArray(table.take(pa.array(codes, mask=null)), dtype=dtype)
+    table = np.array(table, dtype=object) if isinstance(table, list) else _objects(*table)
+    values = np.append(table, None)[codes]
+    if dtype != object:
+        return pd.array(values, dtype=dtype)
+    if null.any():
+        values[null] = np.array(nulls, dtype=object)[seg[null]]
+    return values
+
+
+_KIND_SAMPLES = {"str": ["x", "x"], "mixed": ["x", None], "null": [None, None]}
+
+
+@lru_cache(maxsize=256)
+def _frame_dtypes(frames: tuple, columns: tuple, text_dtype) -> dict:
+    """Each column's dtype in the concatenation of pandas frames whose
+    columns are of the kinds given, reindexed to ``columns``, and the null
+    each frame leaves in the column where it is of object dtype. ``frames``
+    holds one tuple of (column, kind) pairs per frame: "str", "mixed" or
+    "null" for an object array of strings, of strings and None, or of None
+    alone; a numpy dtype's name otherwise. The row table's columns take
+    these dtypes: those the pandas formulation (one frame per contig's
+    unannotated and annotated rows, one for the spacers without a hit)
+    gives them, under the pandas rules in force, which ``text_dtype`` (the
+    dtype pandas gives an object array of strings) keys in the cache."""
+    probes = [
+        pd.DataFrame({c: np.array(_KIND_SAMPLES[k], dtype=object) if k in _KIND_SAMPLES
+                      else np.ones(2, dtype=k) for c, k in frame})
+        for frame in frames
+    ]
+    body = pd.concat(probes, ignore_index=True) if probes else pd.DataFrame(columns=columns)
+    body = body.reindex(columns=list(columns))
+    return {c: (body[c].dtype, tuple(body[c].to_numpy(dtype=object)[1::2])) for c in columns}
+
+
+@dataclass
+class _Library:
+    """The call's distinct spacer sequences, in library order: ``seqs``,
+    their null-padded ASCII (S, W), ``lens``, ``rank`` (place in their
+    sorted order), ``n_names`` (names per sequence, duplicates included)
+    and ``count`` (distinct names); both None where every sequence is its
+    own one name. ``first_name``: for each (sequence, name) pair in order,
+    whether the name is the sequence's first of that text (None where no
+    name repeats)."""
+
+    seqs: list
+    ascii: np.ndarray
+    lens: np.ndarray
+    rank: np.ndarray
+    n_names: np.ndarray | None = None
+    count: np.ndarray | None = None
+    first_name: np.ndarray | None = None
+
+
+@dataclass
+class _Rows:
+    """The row frame of the pandas formulation, keyed by integers, in its
+    order: per length group and contig, the unannotated rows, then the
+    annotated ones; last the spacers without a hit (``_row_table``).
+
+    Per row: ``sp`` (into the library), ``hit`` (-1 for a spacer without a
+    hit), ``entry`` (-1 for a hit in no gene), ``offset``, ``overlap``,
+    ``seg`` (its frame; ``kinds`` holds each frame's column kinds, see
+    _frame_dtypes) and ``label`` (its index label: its first row in the
+    frame expanded by name, of ``n_labels``). Per hit, with one more item
+    at the end that the rows without a hit reach through -1: ``h_*`` (chr
+    the contig id's place among the ids, n the contig's length), the
+    null-padded ASCII of ``target`` and ``pam`` (None for a trivial PAM)
+    and ``diff_id`` (into ``diffs``, -1 for none). Per entry, likewise:
+    ``e_tag`` / ``e_gene`` (into ``tags`` / ``genes``, -1 for None) and
+    ``e_strand``. ``ids``: the contigs' ids, one per ``h_contig``."""
+
+    lib: _Library
+    sp: np.ndarray
+    hit: np.ndarray
+    entry: np.ndarray
+    offset: np.ndarray
+    overlap: np.ndarray
+    seg: np.ndarray
+    kinds: tuple
+    label: np.ndarray
+    n_labels: int
+    h_sp: np.ndarray
+    h_contig: np.ndarray
+    h_chr: np.ndarray
+    h_n: np.ndarray
+    h_ts: np.ndarray
+    h_te: np.ndarray
+    h_strand: np.ndarray
+    h_mm: np.ndarray
+    h_len: np.ndarray
+    target: np.ndarray
+    pam: np.ndarray | None
+    diff_id: np.ndarray
+    diffs: list
+    e_tag: np.ndarray
+    e_gene: np.ndarray
+    e_strand: np.ndarray
+    tags: list
+    genes: list
+    ids: list
+
+
+def _merge_ids(parts: list) -> tuple[list, np.ndarray]:
+    """One (values, ids) table from several (_intern's output each), equal
+    values sharing an id; -1 stays -1."""
+    if len(parts) == 1:
+        return parts[0]
+    seen: dict = {}
+    out = [np.zeros(0, np.int64)]
+    for values, ids in parts:
+        remap = np.fromiter((seen.setdefault(v, len(seen)) for v in values), np.int64, len(values))
+        out.append(np.append(remap, -1)[ids])
+    return list(seen), np.concatenate(out)
+
+
+def _row_table(blocks: list, unmapped: np.ndarray, lib: _Library, insert_site: bool) -> _Rows:
+    """The row table of the contigs' blocks (``(RowBlock, library indices
+    of its length group's spacers)``, in order) and the spacers without a
+    hit."""
+    contigs = list({id(b.contig): b.contig for b, _ in blocks}.values())
+    tables = list({id(b.entries): b.entries for b, _ in blocks}.values())
+    cpos = {id(c): i for i, c in enumerate(contigs)}
+    tpos = {id(t): i for i, t in enumerate(tables)}
+    ids = [c.id for c in contigs]
+    chr_place = {v: i for i, v in enumerate(sorted(set(ids)))}
+
+    tags, e_tag = _merge_ids([(t.tags, t.tag) for t in tables])
+    genes, e_gene = _merge_ids([(t.genes, t.gene) for t in tables])
+    e_tag, e_gene = np.append(e_tag, -1), np.append(e_gene, -1)
+    e_strand = np.concatenate([t.strand for t in tables] + [np.zeros(1, np.int64)])
+    e_base = np.cumsum([0] + [len(t.start) for t in tables])
+
+    sizes = [len(b.spacer) for b, _ in blocks]
+    h_base = np.cumsum([0] + sizes)
+
+    def per_hit(parts: list, last) -> np.ndarray:
+        return np.concatenate(parts + [np.array([last])])
+
+    h_contig = per_hit([np.full(n, cpos[id(b.contig)]) for n, (b, _) in zip(sizes, blocks)],
+                       len(contigs))
+    h_len = per_hit([np.full(n, b.target.shape[1]) for n, (b, _) in zip(sizes, blocks)], 0)
+    W = int(h_len.max())
+    target = np.zeros((len(h_len), W), np.uint8)
+    for (b, _), lo in zip(blocks, h_base):
+        target[lo:lo + len(b.spacer), :b.target.shape[1]] = b.target
+    pam = None
+    if blocks and blocks[0][0].pam is not None:
+        pam = np.concatenate([b.pam for b, _ in blocks] + [blocks[0][0].pam[:1] * 0])
+    h_sp = per_hit([idxs[b.spacer] for b, idxs in blocks], -1)
+    h_mm = per_hit([b.mismatches for b, _ in blocks], 0)
+
+    # the mismatch descriptors: one Python string per mismatched hit
+    diffs: list = []
+    diff_id = np.full(len(h_len), -1, np.int64)
+    for h in np.flatnonzero(h_mm > 0).tolist():
+        d = get_diff(lib.seqs[h_sp[h]], target[h, :h_len[h]].tobytes().decode("ascii"))
+        if d is not None:
+            diff_id[h] = len(diffs)
+            diffs.append(d)
+
+    def kinds(b: RowBlock, hit: np.ndarray, entry: np.ndarray) -> tuple:
+        n = len(hit)
+
+        def kind(n_set: int) -> str:
+            return "str" if n_set == n else "null" if n_set == 0 else "mixed"
+
+        out = [("spacer", "str"), ("len", "int64"), ("target", "str"), ("mismatches", "int64"),
+               ("chr", "str"), ("tar_start", b.tar_start.dtype.name),
+               ("tar_end", b.tar_end.dtype.name), ("sp_dir", "str"),
+               ("pam", "null" if b.pam is None else "str"), ("coords", "str"), ("type", "str"),
+               ("diff", kind(np.count_nonzero(diff_id[hit] >= 0))),
+               ("locus_tag", kind(np.count_nonzero(e_tag[entry] >= 0))),
+               ("gene", kind(np.count_nonzero(e_gene[entry] >= 0))),
+               ("offset", "float64"), ("overlap", "float64"),
+               ("tar_dir", kind(np.count_nonzero(np.abs(e_strand[entry]) == 1)))]
+        if insert_site:
+            out += [("insSite", np.result_type(b.tar_start, b.tar_end).name),
+                    ("insDirection", "str")]
+        return tuple(out)
+
+    parts, frames = [], []
+    for (b, _), lo in zip(blocks, h_base):
+        base = e_base[tpos[id(b.entries)]]
+        for a, z, shift in ((0, b.n_un, 0), (b.n_un, len(b.hit), base)):
+            if z > a:
+                hit, entry = b.hit[a:z] + lo, b.entry[a:z] + shift
+                frames.append(kinds(b, hit, entry))
+                parts.append((h_sp[hit], hit, entry, b.offset[a:z], b.overlap[a:z]))
+    if len(unmapped):
+        frames.append((("spacer", "str"), ("len", "int64")))
+        nan = np.full(len(unmapped), np.nan)
+        none = np.full(len(unmapped), -1, np.int64)
+        parts.append((unmapped, none, none, nan, nan))
+    sp, hit, entry, offset, overlap = (
+        np.concatenate([p[i] for p in parts]) if parts else np.zeros(0, dt)
+        for i, dt in enumerate((np.int64, np.int64, np.int64, float, float)))
+    seg = np.repeat(np.arange(len(parts)), [len(p[0]) for p in parts])
+    if lib.n_names is None:
+        label, n_labels = np.arange(len(sp)), len(sp)
+    else:  # the first of each row's copies in the frame expanded by name
+        per = lib.n_names[sp]
+        label, n_labels = np.cumsum(per) - per, int(per.sum())
+
+    return _Rows(
+        lib=lib, sp=sp, hit=hit, entry=entry, offset=offset, overlap=overlap, seg=seg,
+        kinds=tuple(frames), label=label, n_labels=n_labels,
+        h_sp=h_sp, h_contig=h_contig,
+        h_chr=np.array([chr_place[v] for v in ids] + [len(chr_place)], np.int64)[h_contig],
+        h_n=np.array([c.length for c in contigs] + [1], np.int64)[h_contig],
+        h_ts=per_hit([b.tar_start for b, _ in blocks], 0),
+        h_te=per_hit([b.tar_end for b, _ in blocks], 0),
+        h_strand=per_hit([b.strand for b, _ in blocks], 0),
+        h_mm=h_mm, h_len=h_len, target=target, pam=pam, diff_id=diff_id, diffs=diffs,
+        e_tag=e_tag, e_gene=e_gene, e_strand=e_strand, tags=tags, genes=genes, ids=ids,
     )
-    return texts[inv]
 
 
 ROW_COLUMNS = [
@@ -390,8 +679,10 @@ def run_targets(
     CRISPRtTarget / targStart / targEnd / targDir, no sp_dir); phases:
     optional collector (utils.profiling.Phases, or any object with its
     phase / count / summary) that receives the call's stages: prepare,
-    scan, annotate, assemble, postprocess. Each stage is also a span of
-    the recorder (utils.profiling.span) under the call's ``targets`` span.
+    scan, annotate, assemble, postprocess, and the counters ``hits``,
+    ``rows_buffered`` and ``rows_per_row_strings`` (see postprocess). Each
+    stage is also a span of the recorder (utils.profiling.span) under the
+    call's ``targets`` span.
 
     max_sites: Bowtie-parity reporting cap. The reference invokes bowtie
     with ``-k 100`` (targets.py:502, BowtieRunner.py:111-125), so its
@@ -421,26 +712,43 @@ def run_targets(
                 identity_names = all(
                     len(v) == 1 and v[0] == k for k, v in names_per_seq.items()
                 )
-                # duplicate (name, seq) library entries are the one way the
-                # row frame can carry duplicates (the name merge expands
-                # them); everywhere else rows are unique by construction
-                # (see postprocess docstring)
+                # duplicate (name, seq) library entries are the one way a
+                # sequence's names count differs from its distinct names
                 unique_rows = identity_names or all(
                     len(v) == len(set(v)) for v in names_per_seq.values()
                 )
             seq_arr = np.array(all_seqs, dtype=object)
             lens = np.fromiter(map(len, all_seqs), np.int64, len(all_seqs))
             by_len = {int(L): np.nonzero(lens == L)[0] for L in np.unique(lens)}
+            # each length group's ASCII, and the library's null-padded
+            # matrix, whose lexicographic rank orders the rows by spacer
+            group_ascii = {
+                L: np.frombuffer("".join(seq_arr[idxs].tolist()).encode("ascii"),
+                                 np.uint8).reshape(len(idxs), L)
+                for L, idxs in by_len.items()
+            }
+            seq_ascii = np.zeros((len(all_seqs), int(lens.max(initial=0))), np.uint8)
+            for L, idxs in by_len.items():
+                seq_ascii[idxs, :L] = group_ascii[L]
+            lib = _Library(all_seqs, seq_ascii, lens, _lex_rank(seq_ascii))
+            if not identity_names:
+                lib.n_names = lib.count = np.fromiter(
+                    map(len, names_per_seq.values()), np.int64, len(all_seqs))
+            if not unique_rows:
+                lib.count = np.fromiter(
+                    (len(set(v)) for v in names_per_seq.values()), np.int64, len(all_seqs))
+                lib.first_name = np.fromiter(
+                    (v.index(name) == j for v in names_per_seq.values()
+                     for j, name in enumerate(v)), bool, int(lib.n_names.sum()))
 
-        frames: list[pd.DataFrame] = []
+        blocks: list[tuple] = []
         # track hit spacers by global index — a string set over the row
         # frame (unique + set.update) iterated 600k arrow values per call
         seen_global = np.zeros(len(all_seqs), dtype=bool)
         for L, idxs in sorted(by_len.items()):
             with span("targets.prepare", phases):
                 seqs = seq_arr[idxs].tolist()
-                q_f = spacer_matrix(seqs)
-                q_r = revcomp_matrix(q_f)
+                q_f = _LUT[group_ascii[L]]  # spacer_matrix's codes
             seen = np.zeros(len(seqs), dtype=bool)
             contig_hits: list[tuple] = []
             # contigs shorter than the spacer are ineligible for BOTH
@@ -474,172 +782,266 @@ def run_targets(
                 contig_hits = _cap_sites(contig_hits, max_sites)
             for contig, hits in contig_hits:
                 with span("targets.annotate", phases):
-                    frame = build_rows(
-                        contig, hits, seqs, q_f, q_r, pam, pam_direction,
-                        gene_window=gene_window, insert_site=insert_site,
+                    block = build_rows(
+                        contig, hits, q_f, pam, pam_direction, gene_window=gene_window
                     )
-                if len(frame):
+                if block is not None:
                     seen[hits.spacer_idx] = True  # every hit emits >=1 row
-                    frames.append(frame)
+                    blocks.append((block, idxs))
             seen_global[idxs[seen]] = True
 
         with span("targets.assemble", phases):
-            # unmapped rows for spacers with no surviving hits, then expand
-            # per-name (reference gets one SAM stream per read name);
-            # library-order emission
-            unmapped = [
-                {"spacer": all_seqs[i], "len": int(lens[i])}
-                for i in np.nonzero(~seen_global)[0]
-            ]
-            if unmapped:
-                frames.append(pd.DataFrame(unmapped))
-            columns = ROW_COLUMNS if insert_site else ROW_COLUMNS[:-2]
-            body = (
-                pd.concat(frames, ignore_index=True)
-                if frames
-                # zero-entry library (API path; the CLI loader already
-                # rejects empty files): an empty frame WITH the schema so
-                # the name assignment/merge below and postprocess see their
-                # columns
-                else pd.DataFrame(columns=columns)
-            )
-            if identity_names:
-                # identity naming (the design workload names candidates by
-                # their sequence): skip the string-keyed merge (~3 s at 600k
-                # rows)
-                results = body.copy()
-                results["name"] = results["spacer"]
-            else:
-                names_df = pd.DataFrame(
-                    [(name, seq) for seq, names in names_per_seq.items() for name in names],
-                    columns=["name", "spacer"],
-                )
-                results = body.merge(names_df, on="spacer", how="left")
-            results = results.reindex(columns=columns)
+            # the contigs' rows, then one row per spacer with no surviving
+            # hit; library-order emission
+            rows = _row_table(blocks, np.flatnonzero(~seen_global), lib, insert_site)
         with span("targets.postprocess", phases):
             result = postprocess(
-                results, genome, pam, pam_direction, mismatches,
-                insert_site=insert_site, identity_names=identity_names,
-                assume_unique_rows=unique_rows, compat_columns=compat_columns,
-                gene_window=gene_window,
+                rows, genome, pam, pam_direction, mismatches,
+                insert_site=insert_site, compat_columns=compat_columns,
+                gene_window=gene_window, phases=phases,
             )
         result.stats["profile"] = phases.summary()
     return result
 
 
+def _hit_content(rows: _Rows) -> np.ndarray:
+    """Ids of the hits by what their rows show: each hit its own index,
+    but hits on contigs that share an id, which can show the same spacer,
+    place, strand, contig length, target and PAM, one id per such content,
+    from one sort over their integer columns and the byte columns of target
+    and PAM."""
+    n_ids = Counter(rows.ids)
+    shared = np.flatnonzero(np.isin(rows.h_contig, [i for i, v in enumerate(rows.ids)
+                                                    if n_ids[v] > 1]))
+    keys = [k[shared] for k in (rows.h_sp, rows.h_chr, rows.h_ts, rows.h_te, rows.h_strand,
+                                rows.h_mm, rows.h_n)]
+    keys += [*rows.target[shared].T, *(rows.pam[shared].T if rows.pam is not None else ())]
+    order = np.lexsort(keys)
+    new = np.zeros(len(order), dtype=bool)
+    new[:1] = True
+    for k in keys:
+        k = k[order]
+        new[1:] |= k[1:] != k[:-1]
+    key = np.arange(len(rows.h_sp))
+    key[shared[order]] = len(key) + np.cumsum(new) - 1
+    return key
+
+
+def _repeated_rows(rows: _Rows) -> np.ndarray:
+    """Rows equal in every column but the name to an earlier row: one hit
+    joined to entries whose signatures differ but whose shown values agree
+    (and, where contigs share an id, hits that show the same). The pandas
+    formulation drops them when it drops the name column (targets.py:636)."""
+    dup = np.zeros(len(rows.sp), dtype=bool)
+    has = rows.hit >= 0
+    key = _hit_content(rows)[rows.hit]
+    many = np.bincount(key[has])[key[has]] > 1
+    cand = np.flatnonzero(has)[many]
+    if len(cand) < 2:
+        return dup
+    e = rows.entry[cand]
+    strand = rows.e_strand[e]
+    keys = [np.nan_to_num(rows.overlap[cand], nan=np.inf),
+            np.nan_to_num(rows.offset[cand], nan=np.inf),
+            np.where(np.abs(strand) == 1, strand, 0), rows.e_gene[e], rows.e_tag[e], key[cand]]
+    order = np.lexsort(keys)
+    same = np.ones(len(cand) - 1, dtype=bool)
+    for k in keys:
+        k = k[order]
+        same &= k[1:] == k[:-1]
+    dup[cand[order[1:][same]]] = True
+    return dup
+
+
+def _index(rows: _Rows, repeated: np.ndarray, sorted_rows: np.ndarray) -> pd.Index:
+    """The index the pandas formulation leaves: each kept row's label, in a
+    RangeIndex where its takes keep one (a mask that drops nothing takes
+    nothing). ``sorted_rows``: every row in the sorted order. Where names
+    are not the sequences it replays the formulation's takes on the frame
+    expanded by name: where a sequence repeats a name, drop the repeated
+    (name, row) pairs; sort; drop the rows that differ by name alone."""
+    lib = rows.lib
+    if lib.n_names is None:
+        return pd.RangeIndex(rows.n_labels).take(sorted_rows)
+    per = lib.n_names[rows.sp]
+    body = np.repeat(np.arange(len(per)), per)
+    index = pd.RangeIndex(len(body))
+    if lib.first_name is not None:
+        start = np.cumsum(lib.n_names) - lib.n_names
+        kept = ~repeated[body] & lib.first_name[
+            start[rows.sp[body]] + np.arange(len(body)) - rows.label[body]]
+        if not kept.all():
+            index, body = index.take(np.flatnonzero(kept)), body[kept]
+    place = np.empty(len(per), np.int64)
+    place[sorted_rows] = np.arange(len(sorted_rows))
+    step = np.argsort(place[body], kind="stable")
+    index, body = index.take(step), body[step]
+    kept = np.r_[True, body[1:] != body[:-1]][:len(body)] & ~repeated[body]
+    return index if kept.all() else index.take(np.flatnonzero(kept))
+
+
+def _num(values: np.ndarray, null: np.ndarray, dtype) -> np.ndarray:
+    """A numeric column in its frame dtype: NaN on the null rows where that
+    is a float."""
+    if isinstance(dtype, np.dtype) and dtype.kind == "f":
+        values = values.astype(dtype)
+        values[null] = np.nan
+        return values
+    return values.astype(dtype)
+
+
 def postprocess(
-    results: pd.DataFrame,
+    rows: _Rows,
     genome: Genome,
     pam: str,
     pam_direction: str,
     mismatches: int,
     insert_site: bool = False,
-    identity_names: bool = False,
-    assume_unique_rows: bool = False,
     compat_columns: bool = False,
     gene_window: str = "body",
+    phases=None,
 ) -> TargetsResult:
     """The reference's main() dataframe stage (targets.py:605-701) plus the
-    summary-statistics inputs for its rich table (targets.py:716-861).
+    summary-statistics inputs for its rich table (targets.py:716-861), on
+    the integer row table; each string column is made once, in the final
+    row order.
 
-    assume_unique_rows: run_targets sets this — build_rows emits one row
-    per (hit, entry-signature) with hits unique on (spacer, pos, strand)
-    and unmapped rows unique per sequence, so the reference's SAM-stream
-    dedup (targets.py:607) is a no-op there; a full-frame drop_duplicates
-    hashes every string column (~15 arrow factorizations at design scale)."""
-    seq_lens = genome.seq_lens
-    if not assume_unique_rows:
-        results = results.drop_duplicates()
-    results = filter_offtargets_by_pam(results)
+    The SAM-stream dedup (targets.py:607) and filter_offtargets_by_pam
+    (targets.py:542-544) drop nothing from this table: hits are unique on
+    (spacer, pos, strand), a hit's entries on their signature, and a
+    spacer gets its unmapped row only when it has no hit. Where names are
+    not the sequences, rows that differ in the name alone are one row.
 
-    results = results.copy()
-    if len(results):
-        # vectorized targets.py:624-630 (row-apply cost ~2.6 s at 125k rows).
-        # NOTE: build_rows already folds origin-wrapping hits to a NEGATIVE
-        # tar_start, so for pipeline frames wrap is always False here and
-        # min_tar == tar_start regardless of the id-keyed length map — the
-        # map is only load-bearing for reference-style external frames
-        # (tar_start > tar_end wraps), which cannot carry duplicate ids
-        wrap = results["tar_start"] > results["tar_end"]
-        chrlen = results["chr"].map(seq_lens).astype("float64")
-        results["min_tar"] = np.where(
-            wrap.fillna(False), results["tar_start"] - chrlen, results["tar_start"]
-        )
-        # ONE lexicographic factorization of spacer/chr serves both the
-        # ["chr", "min_tar", "spacer"] sort (sort=True codes order exactly
-        # like the strings; NaN chr -> after the last code, NaN min_tar
-        # sorts last in np.lexsort — same as sort_values' na_position) and
-        # every downstream group/aggregate, which otherwise re-factorizes
-        # ~600k arrow strings per call
-        sp_codes, sp_uniques = pd.factorize(results["spacer"], sort=True)
-        chr_codes, chr_uniques = pd.factorize(results["chr"], sort=True)
-        order = np.lexsort((
-            sp_codes,
-            np.asarray(results["min_tar"], dtype=np.float64),
-            np.where(chr_codes < 0, len(chr_uniques), chr_codes),
-        ))
-        results = results.iloc[order]
-        results["_sp"] = sp_codes[order]
-        results["_chr"] = chr_codes[order]
-        n_sp = len(sp_uniques)
-    else:
-        results["_sp"] = np.zeros(0, dtype=np.int64)
-        results["_chr"] = np.zeros(0, dtype=np.int64)
-        n_sp = 0
-    if identity_names:
-        # name == spacer: one name per spacer, and dropping the name column
-        # cannot create duplicate rows — skip two 600k-string-row dedups
-        spacers_seen_arr = pd.Series(1, index=np.arange(n_sp))
-        results = results.drop("name", axis=1)
-    else:
-        spacers_seen_arr = (
-            results[["name", "_sp"]].drop_duplicates().groupby("_sp").size()
-        )
-        results = results.drop("name", axis=1).drop_duplicates()
-    sp = results["_sp"].to_numpy()
-    # site identity = (chr, coords) pair as one int; NaN target rows get no
-    # site (matches the string "chr_coords" site of targets.py:640-667).
-    # Codes stay as helper columns so the summary stats run on ints (each
-    # string-column nunique/groupby re-factorizes ~600k arrow strings);
-    # null → -1 sentinel
-    chr_c = results["_chr"].to_numpy()
-    coo_c, coo_u = pd.factorize(results["coords"])
-    results["_coo"] = coo_c
-    results["_lt"], _ = pd.factorize(results["locus_tag"])
-    has_t = results["target"].notna().to_numpy()
-    site_id = np.where(has_t, chr_c * (len(coo_u) + 1) + coo_c, -1)
-    tgt = pd.DataFrame({"_sp": sp[has_t], "_site": site_id[has_t]})
-    site_counts_arr = tgt.drop_duplicates().groupby("_sp").size()
-    gene_counts_arr = (
-        pd.Series(sp[results["locus_tag"].notna().to_numpy()]).value_counts()
+    phases counts ``rows_buffered`` (rows whose strings all came from a
+    buffer or a table) and ``rows_per_row_strings``: rows of a hit across
+    the origin, whose coords ``get_coords`` writes once per row, or of a
+    mismatched hit, whose diff ``get_diff`` writes once per hit (in
+    _row_table, whatever it returns) for all the hit's rows. Rows, not
+    calls: the two counters add up to the table's rows."""
+    lib = rows.lib
+    # the ["chr", "min_tar", "spacer"] order: min_tar == tar_start, since
+    # build_rows folds origin-wrapping hits to a NEGATIVE tar_start (rows
+    # without a hit sort last, then by spacer)
+    sorted_rows = np.lexsort((lib.rank[rows.sp], rows.h_ts[rows.hit], rows.h_chr[rows.hit]))
+    repeated = (_repeated_rows(rows) if lib.n_names is not None
+                else np.zeros(len(rows.sp), dtype=bool))
+    order = sorted_rows[~repeated[sorted_rows]]
+    sp, hit, entry, seg = rows.sp[order], rows.hit[order], rows.entry[order], rows.seg[order]
+    R = len(order)
+    has_t = hit >= 0
+    ts, te, mm = rows.h_ts[hit], rows.h_te[hit], rows.h_mm[hit]
+    wrap = ts < 0
+
+    # the helper codes, null → -1: spacer and chr by their strings' order,
+    # coords and locus_tag in order of first appearance; a site is (chr,
+    # coords) (targets.py:640-667)
+    code_sp = lib.rank[sp]
+    present = np.zeros(len(set(rows.ids)) + 1, dtype=bool)
+    present[rows.h_chr[hit[has_t]]] = True
+    code_chr = np.where(has_t, np.cumsum(present)[rows.h_chr[hit]] - 1, -1)
+    coo_key = ts * (int(rows.h_n.max()) + 1) + te
+    wrapped = np.flatnonzero(wrap)
+    wrapped_text = [get_coords(int(a), int(b), int(n)) for a, b, n in
+                    zip(ts[wrapped], te[wrapped], rows.h_n[hit[wrapped]])]
+    texts_seen: dict = {}
+    coo_key[wrapped] = [-2 - texts_seen.setdefault(s, len(texts_seen)) for s in wrapped_text]
+    code_coo = _first_codes(coo_key, has_t)
+    tag = rows.e_tag[entry]
+    code_lt = _first_codes(tag, tag >= 0)
+
+    # per spacer (by code): names, distinct sites, gene rows, intergenic rows
+    S = len(lib.rank)
+    count = np.ones(S, np.int64)
+    if lib.count is not None:
+        count[lib.rank] = lib.count
+    genes = np.bincount(code_sp[tag >= 0], minlength=S)
+    intergenic = np.bincount(code_sp[(tag < 0) & has_t], minlength=S)
+    site = code_chr * (int(code_coo.max(initial=-1)) + 2) + code_coo
+    sites = _distinct_per(code_sp[has_t], site[has_t], S)
+    notes, note_of = _note_texts(np.stack([sites, genes, intergenic], axis=1))
+
+    columns = [c for c in (ROW_COLUMNS if insert_site else ROW_COLUMNS[:-2]) if c != "name"]
+    text_dtype = pd.Series(np.array(["x"], dtype=object)).dtype
+    dtypes = dict(_frame_dtypes(rows.kinds, tuple(columns), text_dtype))
+    dtypes["note"] = (text_dtype, ())  # the notes are assigned as an object array
+
+    def text(col: str, table, codes: np.ndarray):
+        dtype, nulls = dtypes[col]
+        return _text_column(table, codes, dtype, nulls, seg)
+
+    def num(col: str, values: np.ndarray):
+        return _num(values, ~has_t, dtypes[col][0])
+
+    strand_r = np.where(has_t, rows.h_strand[hit] == STRAND_R, -1)
+    e_strand = rows.e_strand[entry]
+    # coords: the plain rows' text from their integers, then the rows
+    # across the origin, whose get_coords text follows them in the table
+    plain = np.flatnonzero(has_t & ~wrap)
+    data, offsets = _coords_buffer(ts[plain], te[plain])
+    if len(wrapped):
+        raw = "".join(wrapped_text).encode("ascii")
+        data = np.concatenate([data, np.frombuffer(raw, np.uint8)])
+        offsets = np.concatenate(
+            [offsets, offsets[-1] + np.cumsum([len(t) for t in wrapped_text])])
+    coords_of = np.full(R, -1, np.int64)
+    coords_of[plain] = np.arange(len(plain))
+    coords_of[wrapped] = len(plain) + np.arange(len(wrapped))
+    cols = {
+        "spacer": text("spacer", _buffer(lib.ascii, lib.lens), sp),
+        "len": lib.lens[sp].astype(dtypes["len"][0]),
+        "target": text("target", _buffer(rows.target[:-1], rows.h_len[:-1]), hit),
+        "mismatches": num("mismatches", mm),
+        "chr": text("chr", rows.ids, np.where(has_t, rows.h_contig[hit], -1)),
+        "tar_start": num("tar_start", ts),
+        "tar_end": num("tar_end", te),
+        "sp_dir": text("sp_dir", ["F", "R"], strand_r),
+        "pam": text("pam", [], np.full(R, -1)) if rows.pam is None else
+        text("pam", _buffer(rows.pam[:-1]), hit),
+        "coords": text("coords", (data, offsets), coords_of),
+        "type": text("type", ["perfect", "mismatch"], np.where(has_t, mm > 0, -1)),
+        "diff": text("diff", rows.diffs, rows.diff_id[hit]),
+        "locus_tag": text("locus_tag", rows.tags, tag),
+        "gene": text("gene", rows.genes, rows.e_gene[entry]),
+        "offset": rows.offset[order].astype(dtypes["offset"][0]),
+        "overlap": rows.overlap[order].astype(dtypes["overlap"][0]),
+        "tar_dir": text("tar_dir", ["F", "R"], np.where(e_strand == 1, 0,
+                                                        np.where(e_strand == -1, 1, -1))),
+    }
+    if insert_site:
+        # insertion 49 bp downstream of the target end (F) / upstream of
+        # the start (R), mod chromosome length (insertCharacteristics.py:482-486)
+        n = rows.h_n[hit]
+        cols["insSite"] = num("insSite", np.where(strand_r == 1, (ts - 49) % n, (te + 49) % n))
+        cols["insDirection"] = text("insDirection", ["F", "R"], strand_r)
+    if R:
+        cols["min_tar"] = np.where(has_t, ts, np.nan)
+    cols.update({
+        "_sp": code_sp, "_chr": code_chr, "_coo": code_coo, "_lt": code_lt,
+        "count": count[code_sp], "sites": sites[code_sp], "genes": genes[code_sp],
+        "intergenic": intergenic[code_sp],
+        "note": text("note", notes, note_of[code_sp]) if R else
+        np.zeros(0, dtype=object),
+    })
+    index = _index(rows, repeated, sorted_rows)
+    results = pd.DataFrame(
+        {c: pd.Series(v, index=index, copy=False,
+                      dtype=object if isinstance(v, np.ndarray) and v.dtype == object else None)
+         for c, v in cols.items()},
+        copy=False,
     )
-    intergenic_counts_arr = pd.Series(
-        sp[(results["locus_tag"].isna() & results["target"].notna()).to_numpy()]
-    ).value_counts()
+    if phases is not None:
+        per_row = int(np.count_nonzero(has_t & (wrap | (mm > 0))))
+        phases.count("rows_buffered", R - per_row)
+        phases.count("rows_per_row_strings", per_row)
 
-    spacer_lengths = set(results["len"].dropna().astype(int))
-    spacer_len_range = (
-        str(next(iter(spacer_lengths)))
-        if len(spacer_lengths) == 1
-        else ",".join(str(x) for x in sorted(spacer_lengths))
-    )
+    spacer_lengths = np.flatnonzero(np.bincount(lib.lens[sp])).tolist()
+    spacer_len_range = ",".join(str(x) for x in spacer_lengths)
 
-    note = pd.DataFrame(
-        {
-            "count": spacers_seen_arr,
-            "sites": site_counts_arr,
-            "genes": gene_counts_arr,
-            "intergenic": intergenic_counts_arr,
-        }
-    )  # index = spacer codes (spacers_seen covers every spacer in results)
-    note = note.fillna(0).astype(int)
-    note["note"] = build_notes(note)
-    results = results.merge(note, left_on="_sp", right_index=True, how="left")
-
+    pam_rows = rows.pam[hit[has_t]] if rows.pam is not None else np.zeros((0, 0))
     column_order = ["spacer", "locus_tag", "gene", "chr"]
     if not (results["count"] == 1).all():
         column_order.append("count")
-    if not (results["pam"].isnull().all() or results["pam"].nunique() == 1):
+    if len(pam_rows) and not (pam_rows == pam_rows[0]).all():
         column_order.append("pam")
     if not (results["mismatches"] == 0).all():
         column_order.append("mismatches")
@@ -678,11 +1080,20 @@ def postprocess(
     return TargetsResult(table=final_results, results=results, stats=stats)
 
 
-def _n_uniq_nonneg(codes: pd.Series) -> int:
-    """Distinct non-sentinel factorized codes (≡ .nunique() on the string
-    column the codes were factorized from, which excludes nulls)."""
-    arr = codes.to_numpy()
-    return int(np.unique(arr[arr >= 0]).size)
+def _n_distinct(codes: np.ndarray) -> int:
+    """Distinct non-negative codes (≡ .nunique() on the column the codes
+    were factorized from, which excludes nulls)."""
+    codes = codes[codes >= 0]
+    return int(np.count_nonzero(np.bincount(codes))) if len(codes) else 0
+
+
+def _distinct_per(group: np.ndarray, value: np.ndarray, minlength: int = 0) -> np.ndarray:
+    """Distinct non-negative ``value``s per non-negative ``group`` code,
+    indexed by the code."""
+    span = int(value.max(initial=0)) + 1
+    key = np.sort(group * span + value)
+    distinct = key[np.r_[True, key[1:] != key[:-1]]] if len(key) else key
+    return np.bincount(distinct // span, minlength=minlength)
 
 
 def _summary_stats(
@@ -701,6 +1112,10 @@ def _summary_stats(
     ambiguous_coordinates, ambiguous_locus_tags = genome.ambiguity_stats(
         gene_window
     )
+    # every aggregate below runs on postprocess's codes ("_sp"/"_chr"/
+    # "_coo"/"_lt", null → -1) with bincount / unique
+    sp, chr_, coo, lt = (results[c].to_numpy(np.int64) for c in ("_sp", "_chr", "_coo", "_lt"))
+    has_t = results["target"].notna().to_numpy()
     stats = {
         "pam": pam,
         "pam_direction": pam_direction,
@@ -716,36 +1131,21 @@ def _summary_stats(
         "total_genes": sum(genome.all_genes.values()),
         "overlapping_genes": ambiguous_locus_tags,
         "ambiguous_coordinates": ambiguous_coordinates,
-        # every aggregate below runs on postprocess-time factorized codes
-        # ("_sp"/"_chr"/"_coo"/"_lt", null → -1): string nunique/groupby
-        # re-factorizes ~600k arrow strings per call
-        "chromosomes_targeted": _n_uniq_nonneg(results["_chr"]),
-        "genes_targeted": _n_uniq_nonneg(results["_lt"]),
-        "overlapping_genes_targeted": _n_uniq_nonneg(
-            results.loc[results["genes"] > 1, "_lt"]
-        ),
-        "unique_barcodes": int(results["_sp"].nunique()),
-        "intergenic_barcodes": _n_uniq_nonneg(
-            results.loc[
-                (results["_lt"].to_numpy() < 0) & (results["_chr"].to_numpy() >= 0),
-                "_sp",
-            ]
-        ),
-        "off_target_barcodes": int(
-            results[results["target"].notnull()]
-            .groupby("_sp")["_coo"]
-            .nunique()  # ≡ apply(set).apply(len), without per-group Python
-            .gt(1)
-            .sum()
-        ),
-        "non_targeting_barcodes": int(
-            results.loc[results["target"].isnull(), "_sp"].nunique()
-        ),
+        "chromosomes_targeted": _n_distinct(chr_),
+        "genes_targeted": _n_distinct(lt),
+        "overlapping_genes_targeted": _n_distinct(lt[results["genes"].to_numpy() > 1]),
+        "unique_barcodes": _n_distinct(sp),
+        "intergenic_barcodes": _n_distinct(sp[(lt < 0) & (chr_ >= 0)]),
+        # ≡ apply(set).apply(len) > 1 over the targeted rows' coords
+        "off_target_barcodes": int(np.count_nonzero(_distinct_per(sp[has_t], coo[has_t]) > 1)),
+        "non_targeting_barcodes": _n_distinct(sp[~has_t]),
     }
     if "mismatches" in final_results.columns:
-        # same rows as final_results, grouped on codes instead of strings
-        per_mm = results.groupby(["mismatches"])["_sp"].nunique()
-        stats["spacers_per_mismatch"] = {int(k): int(v) for k, v in per_mm.items()}
+        # same rows as final_results, distinct spacers per mismatch count
+        mm = results["mismatches"].to_numpy(np.float64)
+        ok = ~np.isnan(mm)
+        per_mm = _distinct_per(mm[ok].astype(np.int64), sp[ok])
+        stats["spacers_per_mismatch"] = {int(k): int(v) for k, v in enumerate(per_mm) if v}
     return stats
 
 

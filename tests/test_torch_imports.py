@@ -70,7 +70,8 @@ PARTIAL_COPIES = {
     "pipeline/heuristic_count.py": ("pipeline/heuristic_count.py",
                                     {"run_count", "_stream_counts"}, 23),
     "pipeline/distill.py": ("pipeline/distill.py", {"distill_reads", "_distill_multihost"}, 13),
-    "pipeline/targets.py": ("pipeline/targets.py", {"run_targets"}, 14),
+    "pipeline/targets.py": ("pipeline/targets.py",
+                            {"run_targets", "build_rows", "postprocess", "_summary_stats"}, 5),
     "pipeline/design.py": ("pipeline/design.py", {"run_design"}, 6),
 }
 

@@ -19,7 +19,8 @@ import torch
 from barcoder_tpu.cli.targets import main as ref_cli
 from barcoder_tpu.pipeline.targets import run_targets as ref_run_targets
 from barcoder_tpu.pipeline.targets import write_output as ref_write_output
-from barcoder_tpu.seqio.genbank import write_genbank
+from barcoder_tpu.core.encode import revcomp
+from barcoder_tpu.seqio.genbank import Feature, Location, write_genbank
 from barcoder_tpu.seqio.library import BarcodeLibrary
 from barcoder_tpu_torch.cli.targets import main as port_cli
 from barcoder_tpu_torch.ops.cuda_scan import cuda_scan_contigs
@@ -114,6 +115,148 @@ def test_run_targets_frames_equal(case, multi_contig, engine, monkeypatch):
     assert a.getvalue() == b.getvalue()
     if case == 0:
         assert (got.table["tar_start"] == 800).any()
+
+
+def _equal_to_reference(got, want):
+    pd.testing.assert_frame_equal(got.table, want.table, check_index_type=True)
+    pd.testing.assert_frame_equal(got.results, want.results, check_index_type=True)
+    strip = lambda s: {k: v for k, v in s.items() if k != "profile"}  # noqa: E731
+    assert strip(got.stats) == strip(want.stats)
+    for as_json in (False, True):
+        a, b = io.StringIO(), io.StringIO()
+        port_targets.write_output(got, a, as_json=as_json)
+        ref_write_output(want, b, as_json=as_json)
+        assert a.getvalue() == b.getvalue()
+
+
+def scale_inputs():
+    """A 50 kb circular genome: 100 genes, 30 more that overlap them (20
+    locus tags, some shared), a gene and a planted guide across the origin;
+    ~2,000 spacers of 20 and 24 nt read off its NGG sites on both strands,
+    60 mismatched copies (1-3 substitutions), 40 non-targeting spacers, and
+    43 sequences under a second name."""
+    rng = np.random.default_rng(11)
+    n = 50_000
+    rec = make_record(n=n, topology="circular", seed=11, n_genes=100, wrapped_gene=True)
+    for i in range(30):
+        s = int(rng.integers(0, n - 1_300))
+        rec.features.append(Feature(
+            "gene", Location(s, s + int(rng.integers(200, 1_200)), int(rng.choice([1, -1]))),
+            {"locus_tag": [f"OVL_{i % 20:03d}"], "gene": [f"ovl{i}"] if i % 2 else []}))
+    cross = random_seq(20, rng)
+    plant_guide(rec, cross, n - 10, pam="TGG")
+    seq = rec.seq
+    b = np.frombuffer(seq.encode(), np.uint8)
+    guides = []
+    for L, k in ((20, 1_500), (24, 500)):
+        p = np.arange(3, n - L - 3)
+        fwd = p[(b[p + L + 1] == ord("G")) & (b[p + L + 2] == ord("G"))]
+        rev = p[(b[p - 3] == ord("C")) & (b[p - 2] == ord("C"))]
+        guides += [seq[q:q + L] for q in rng.choice(fwd, k // 2, replace=False)]
+        guides += [revcomp(seq[q:q + L]) for q in rng.choice(rev, k - k // 2, replace=False)]
+    guides = guides[:1_900]
+    guides += [mutate(g, rng.choice(len(g), int(rng.integers(1, 4)), replace=False))
+               for g in guides[:60]]
+    guides += [random_seq(20, rng) for _ in range(40)] + [cross]
+    entries = [(f"s{i}", g) for i, g in enumerate(guides)]
+    entries += [(f"dup{i}", guides[i]) for i in range(0, 300, 7)]
+    return [rec], entries
+
+
+SCALE_CASES = {
+    "named": {},
+    "identity": {"identity": True},
+    "insert_site_upstream": {"insert_site": True, "gene_window": "upstream"},
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCALE_CASES))
+def test_run_targets_at_scale_frames_equal(case):
+    """~2,000 spacers at v = 3: the frames, stats and TSV / JSON text equal
+    the JAX package's, named, identity-named and with the CRISPRt columns
+    on promoter windows."""
+    records, entries = scale_inputs()
+    genome = genome_from_records(records)
+    kw = dict(SCALE_CASES[case])
+    if kw.pop("identity", False):
+        lib = BarcodeLibrary.from_unique_list(list(dict.fromkeys(s for _, s in entries)))
+    else:
+        lib = BarcodeLibrary(entries)
+    want = ref_run_targets(lib, genome, "NGG", 3, backend="jax", **kw)
+    got = port_targets.run_targets(lib, genome, "NGG", 3, backend="torch", **kw)
+    _equal_to_reference(got, want)
+    rows = got.results
+    assert len(rows) > 2_000 and (rows["tar_start"] < 0).any()
+    assert (rows["mismatches"] > 0).any() and rows["target"].isna().any()
+
+
+@pytest.mark.parametrize("layout", ["shared_ids", "two_lengths", "repeated_name"])
+def test_run_targets_frames_equal_on_repeated_annotations(layout):
+    """Genes that show one hit the same annotation (one locus tag, one
+    start, two ends): the rows that differ only by name collapse as in the
+    JAX package, and the index keeps its class. Layouts: two contigs under
+    one id and a sequence under two names; a second spacer length that
+    sorts first; a name given twice to one sequence."""
+    rng = np.random.default_rng(3)
+    records = [make_record(n=6_000, topology="circular", seed=3, n_genes=4)]
+    if layout == "shared_ids":
+        records.append(make_record(n=6_000, topology="circular", seed=3, n_genes=4))
+    guide, other = random_seq(20, rng), random_seq(24, rng)
+    for rec in records:
+        plant_guide(rec, guide, 2_300, pam="AGG")  # between two of the evenly spaced genes
+        plant_guide(rec, other, 1_000, pam="TGG")
+        for end in (2_600, 2_700):
+            rec.features.append(Feature("gene", Location(2_290, end, 1), {"locus_tag": ["REP"]}))
+    entries = {"shared_ids": [("a", guide), ("b", guide), ("c", random_seq(20, rng))],
+               "two_lengths": [("a", guide), ("b", other)],
+               "repeated_name": [("a", guide), ("a", guide), ("b", other)]}[layout]
+    genome = genome_from_records(records)
+    want = ref_run_targets(BarcodeLibrary(entries), genome, "NGG", 1, backend="jax")
+    got = port_targets.run_targets(BarcodeLibrary(entries), genome, "NGG", 1, backend="torch")
+    _equal_to_reference(got, want)
+
+
+def test_run_targets_frames_equal_without_string_inference():
+    """Where pandas keeps strings in object columns, the port's columns are
+    object columns of the same values."""
+    records, entries = build_inputs(multi_contig=True)
+    genome = genome_from_records(records)
+    with pd.option_context("future.infer_string", False):
+        want = ref_run_targets(BarcodeLibrary(entries), genome, "NGG", 2, backend="jax",
+                               insert_site=True)
+        got = port_targets.run_targets(BarcodeLibrary(entries), genome, "NGG", 2,
+                                       backend="torch", insert_site=True)
+    assert (want.results.dtypes == object).sum() > 10
+    _equal_to_reference(got, want)
+
+
+def test_row_counters_count_every_row(monkeypatch):
+    """rows_buffered + rows_per_row_strings is the row count; the second
+    counts the rows of hits across the origin or with mismatches. The
+    per-row string calls made are get_coords once per row across the
+    origin and get_diff once per mismatched hit."""
+    calls = {"get_coords": 0, "get_diff": 0}
+
+    def counted(name):
+        f = getattr(port_targets, name)
+
+        def call(*args):
+            calls[name] += 1
+            return f(*args)
+        return call
+
+    for name in calls:
+        monkeypatch.setattr(port_targets, name, counted(name))
+    records, entries = build_inputs(multi_contig=True)
+    got = port_targets.run_targets(BarcodeLibrary(entries), genome_from_records(records),
+                                   "NGG", 2, backend="torch")
+    rows, counters = got.results, got.stats["profile"]["counters"]
+    wrapped, mismatched = rows["tar_start"] < 0, rows["mismatches"] > 0
+    assert calls["get_coords"] == wrapped.sum() > 0
+    hits = rows[mismatched].drop_duplicates(["spacer", "chr", "tar_start", "tar_end", "sp_dir"])
+    assert calls["get_diff"] == len(hits) > 0
+    assert counters["rows_per_row_strings"] == (wrapped | mismatched).sum()
+    assert counters["rows_buffered"] + counters["rows_per_row_strings"] == len(rows)
 
 
 @pytest.fixture(scope="module")
