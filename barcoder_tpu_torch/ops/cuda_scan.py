@@ -58,6 +58,11 @@ DEFAULT_P = 16384  # genome positions per phase-1 tile
 MAX_PAM = 12  # pattern slots in the PAM spec (reference PAMs are 2-4 nt)
 EXTRACT_BATCH = 4096  # pairs per phase-2 batch at P2 <= 512
 
+# phase-1 pairs that phase 2 re-scores, summed over every scan since the
+# process started, from the sizes torch.nonzero has already synced
+# (run_targets reports its own scans' share as the counter ``scan.pairs``)
+pairs = 0
+
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
@@ -379,6 +384,11 @@ def _score_onehot(q, g, mask, *, L, thresh):
     return b, row, col, (L - scores[b, row, col]).to(torch.int32)
 
 
+def _count_pairs(*found: torch.Tensor) -> None:
+    global pairs
+    pairs += sum(len(t) for t in found)
+
+
 def _np(x: torch.Tensor) -> np.ndarray:
     return x.cpu().numpy()
 
@@ -489,6 +499,7 @@ class _ScanJob:
                 self.phase1 = {"fused": self._phase1_fused()}
             else:
                 self.phase1 = {s: self._phase1(s) for s in (STRAND_F, STRAND_R)}
+            _count_pairs(*self.phase1.values())
 
     def _n_sb_pad8(self) -> int:
         p = self.prep
@@ -772,6 +783,7 @@ class _SiteScanJob:
         with span("scan.phase1"):
             self.pairs = phase1_matrix(table.codes_lp, p.q_dev[STRAND_F], p.thresh_dev,
                                        P=p.P, L=p.L, K=p.K, SUB=p.SUB, BS_M=p.bs)
+            _count_pairs(self.pairs)
 
     def collect(self) -> Hits:
         with span("scan.phase2"):

@@ -29,9 +29,9 @@ from numpy.lib.stride_tricks import sliding_window_view
 
 from ..core.genome import Genome
 from ..ops.prep import build_scan_array, site_masks
-from ..pipeline.targets import TargetsResult, run_targets
+from ..pipeline.targets import TargetsResult, _n_distinct, run_targets
 from ..seqio.library import BarcodeLibrary
-from ..utils.profiling import span
+from ..utils.profiling import Phases, span
 
 
 def is_dna(sequence: str) -> bool:
@@ -149,9 +149,14 @@ class DesignOptions:
 
 
 def apply_design_filters(
-    targets: pd.DataFrame, barcode_length: int, opts: DesignOptions, log=None
+    targets: pd.DataFrame, barcode_length: int, opts: DesignOptions, log=None,
+    phases=None,
 ) -> pd.DataFrame:
-    """The selection cascade (design_guides.py:111-326)."""
+    """The selection cascade (design_guides.py:111-326). The off-target
+    step is the recorder's ``design.offtargets`` span, and counts the
+    spacers it removes as ``design.offtarget_spacers_removed`` into
+    ``phases`` (any object with ``count(name, value)``) when one is
+    given."""
     info = log.info if log else (lambda *_: None)
     targets = targets.copy()
     if "mismatches" not in targets.columns:
@@ -206,10 +211,15 @@ def apply_design_filters(
                 "omit_offtargets requires a 'note' column (site/gene counts) "
                 "on the targets frame; run the targets stage with notes enabled"
             )
-        len_before = len(targets)
-        targets.loc[:, "sites"] = note_field(r"(\d+) site")
-        targets = targets[targets["sites"] == 1]
-        info(f"Removed {len_before - len(targets):,} off-targeting guides")
+        with span("design.offtargets"):
+            len_before = len(targets)
+            targets.loc[:, "sites"] = note_field(r"(\d+) site")
+            if phases is not None:
+                off = (targets["sites"] != 1).to_numpy()
+                phases.count("design.offtarget_spacers_removed",
+                             _n_distinct(targets["_spc"].to_numpy()[off]))
+            targets = targets[targets["sites"] == 1]
+            info(f"Removed {len_before - len(targets):,} off-targeting guides")
 
     if opts.mismatches > 0:
         len_before = len(targets)
@@ -382,7 +392,12 @@ def run_design(
 
     The call is the recorder's ``design`` span (utils.profiling.span), with
     ``design.enumerate`` (candidates, the FASTA, the library), the targets
-    stage's own ``targets`` span and ``design.filter`` inside it."""
+    stage's own ``targets`` span and ``design.filter`` inside it, and
+    ``design.offtargets`` inside that under ``omit_offtargets``. The
+    targets stage's ``stats["profile"]["counters"]`` gain the design's
+    counters: ``design.candidates``, ``design.multisite_spacers``
+    (candidates whose note counts more than one site) and, under
+    ``omit_offtargets``, ``design.offtarget_spacers_removed``."""
     opts = (opts or DesignOptions()).resolve(barcode_length)
     with span("design"):
         with span("design.enumerate"):
@@ -400,6 +415,11 @@ def run_design(
             library, genome, pam, opts.mismatches,
             pam_direction=opts.pam_direction, backend=backend,
         )
+        counters = tr.stats["profile"]["counters"]
         with span("design.filter"):
-            final = apply_design_filters(tr.table, barcode_length, opts, log=log)
+            final = apply_design_filters(tr.table, barcode_length, opts, log=log,
+                                         phases=Phases(counters=counters))
+        sp, sites = (tr.results[c].to_numpy(np.int64) for c in ("_sp", "sites"))
+        counters["design.candidates"] = len(candidates)
+        counters["design.multisite_spacers"] = _n_distinct(sp[sites > 1])
     return final, tr, candidates

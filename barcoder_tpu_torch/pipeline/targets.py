@@ -44,6 +44,7 @@ from ..core.coords import fold_hit_coords_vec, get_coords, get_diff
 from ..core.encode import _COMP, _LUT, COMP_ASCII, DECODE_ASCII
 from ..core.genome import Contig, Genome
 from ..core.pam import pam_is_trivial, pam_window_start
+from ..ops import cuda_scan
 from ..ops.prep import build_scan_array
 from ..ops.scan import scan_contigs
 from ..ops.types import STRAND_R, Hits
@@ -680,7 +681,9 @@ def run_targets(
     optional collector (utils.profiling.Phases, or any object with its
     phase / count / summary) that receives the call's stages: prepare,
     scan, annotate, assemble, postprocess, and the counters ``hits``,
-    ``rows_buffered`` and ``rows_per_row_strings`` (see postprocess). Each
+    ``scan.pairs`` (the phase-1 pairs that the CUDA engine's phase 2
+    re-scored; 0 on the other backends), ``rows_buffered`` and
+    ``rows_per_row_strings`` (see postprocess). Each
     stage is also a span of the recorder (utils.profiling.span) under the
     call's ``targets`` span.
 
@@ -764,6 +767,7 @@ def run_targets(
             # share the spacer prep and pipeline per-contig device work
             # (ops.scan.scan_contigs) instead of paying each contig's round
             # trips serially
+            pairs_before = cuda_scan.pairs
             with span("targets.scan", phases):
                 hits_list = (
                     scan_contigs(
@@ -772,6 +776,7 @@ def run_targets(
                     if eligible  # an empty group must not build library prep
                     else []
                 )
+            phases.count("scan.pairs", cuda_scan.pairs - pairs_before)
             for contig, hits in zip(eligible, hits_list):
                 phases.count("hits", len(hits))
                 contig_hits.append((contig, hits))

@@ -72,7 +72,7 @@ PARTIAL_COPIES = {
     "pipeline/distill.py": ("pipeline/distill.py", {"distill_reads", "_distill_multihost"}, 13),
     "pipeline/targets.py": ("pipeline/targets.py",
                             {"run_targets", "build_rows", "postprocess", "_summary_stats"}, 5),
-    "pipeline/design.py": ("pipeline/design.py", {"run_design"}, 6),
+    "pipeline/design.py": ("pipeline/design.py", {"run_design", "apply_design_filters"}, 5),
 }
 
 # port module -> the JAX package module it copies with the package it

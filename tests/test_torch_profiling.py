@@ -104,10 +104,12 @@ def test_ids_parents_and_roots_nest():
 
 def test_a_thread_opens_its_own_root():
     seen = {}
+    # the four threads are alive together, so none can reuse another's ident
+    together = threading.Barrier(4, timeout=30)
 
     def work(k):
         with span(f"t{k}") as outer:
-            time.sleep(0.01)
+            together.wait()
             with span(f"t{k}.inner") as inner:
                 seen[k] = (outer, inner)
 
