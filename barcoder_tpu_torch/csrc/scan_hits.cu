@@ -56,6 +56,18 @@
 //     finished spacer block. That overlap holds only while no divergent
 //     branch runs with a wgmma in flight (ptxas would serialize them), so
 //     the block-end code is branch-free.
+//
+// Phase 2 (phase2_hits_kernel, entry point phase2_hits_launch) is the same
+// loop with its grid taken from phase 1's pair list: a thread block owns one
+// (subtile, spacer block) pair that phase 1 found, builds G for the
+// subtile's 512 columns from int8 codes, streams the block's Q chunks (the
+// same chunk buffer phase 1 read) and tests every score of the product
+// against thresh = L - v, the column mask and the real rows; each hit is
+// appended as (spacer, column, strand, mismatches) through one device
+// counter. No score matrix is written (see phase2_hits_kernel). Its bound is
+// the int8 rate too: 2 * 4L operations for each of a pair's BS_M x P2 scores
+// (5k pairs of 512 x 512 at L = 20: 0.21 T operations, ~0.1 ms); the hits,
+// a handful a pair, cost nothing beside that.
 
 #include "wgmma_tile.cuh"
 
@@ -224,6 +236,207 @@ int launch(const void* qc, const Args& a, int n_tiles, int BS64, cudaStream_t st
   return (int)cudaGetLastError();
 }
 
+// --- phase 2 ------------------------------------------------------------------
+
+// What phase 2 reads and writes. Pairs are the flat indices phase 1's
+// indicator gives over (n_tiles, n_sb_pad8, SUB): subtile t of P2 columns,
+// spacer block s of BS_M rows. pairs_r (n_r of them, may be null) come from a
+// launch of the reverse rows alone, whose blocks lie s_rev blocks on in Q.
+struct P2Args {
+  const long long* pairs_f;
+  const long long* pairs_r;
+  const int8_t* codes;  // base j of column c at codes[j * code_stride + c] (4 N, 5 out of bounds)
+  const uint8_t* mask;  // column c of strand r live iff mask[r * mask_rstride + c]; null: all
+  int4* out;            // (capacity,) records (spacer, column, strand, mismatches)
+  int* count;           // zeroed; ends as the number of hits, past capacity too
+  long long code_stride, mask_rstride;
+  int n_f, n_r, n_sb_pad8, SUB, s_rev;
+  int half_blocks;      // blocks from here on: reverse rows, spacer (s - half_blocks) BS_M + row
+  int n_sub;            // subtiles: a pair past them holds nothing
+  int BS_M, P2, L, S;   // rows at or past spacer S are padding
+  int n_valid;          // columns at or past n_valid never hit
+  int thresh, capacity, n_cc;
+};
+
+// shared memory: G, the Q ring, each consumer thread's 128 scores as bytes
+// (read back only for its hits), the columns' live flags, the barriers
+template <int KS> constexpr int P2_SCORE_OFF = G_BYTES<KS> + QSTAGES * CHUNK_BYTES<KS>;
+template <int KS> constexpr int P2_OK_OFF = P2_SCORE_OFF<KS> + 2 * 128 * (N / 2);
+template <int KS> constexpr int P2_BAR_OFF = P2_OK_OFF<KS> + BN;
+template <int KS> constexpr int P2_SMEM = P2_BAR_OFF<KS> + 2 * QSTAGES * 8;
+
+// four scores 0..L (acc values that fit a byte) as one little-endian word
+__device__ __forceinline__ uint32_t pack_bytes(int a, int b, int c, int d) {
+  return (uint32_t)a | (uint32_t)b << 8 | (uint32_t)c << 16 | (uint32_t)d << 24;
+}
+
+// One thread block per (pair, 512 columns of its subtile). G is built from
+// the int8 codes as g_word builds it (no bias rows: the mask is applied to
+// each score instead), with each column's live flag beside it in shared
+// memory. Q is phase 1's chunk buffer, streamed by the producer thread. A
+// consumer warpgroup waits for its product (no wgmma is in flight while it
+// reads the sums, so the test below may branch), takes the max of its 128
+// sums and, only when some lane of the warp reaches thresh, tests each sum
+// against thresh, the column's flag and the row's into a 128-bit mask; the
+// warp reserves room for its hits with one atomicAdd, and each lane walks its
+// mask's set bits and writes its own, reading each score back from its bytes
+// in shared memory (an unrolled write of 128 predicated records from the
+// registers spills ~700 bytes). The two consumer warpgroups take turns on the
+// tensor cores, so one's test overlaps the other's product.
+
+template <int KS>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    phase2_hits_kernel(const uint8_t* __restrict__ qc, const __grid_constant__ P2Args a,
+                       int BS64) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const int b = blockIdx.x / a.n_cc, cc = blockIdx.x % a.n_cc;
+  const bool second = b >= a.n_f;
+  const long long flat = second ? a.pairs_r[b - a.n_f] : a.pairs_f[b];
+  const long long row_len = (long long)a.n_sb_pad8 * a.SUB;
+  const int t = (int)(flat / row_len) * a.SUB + (int)(flat % row_len % a.SUB);
+  const int s = (int)(flat % row_len / a.SUB) + (second ? a.s_rev : 0);
+  const bool real = t < a.n_sub;  // a pair past the subtiles holds nothing
+  const int rev = s >= a.half_blocks;
+  const int sp0 = (s - rev * a.half_blocks) * a.BS_M;
+  const int c_sub = cc * BN;                           // first column in the subtile
+  const long long col0 = (long long)t * a.P2 + c_sub;  // its global column
+  const int n_live = real ? min(BN, a.P2 - c_sub) : 0;
+
+  const uint32_t g_s = smem_u32(smem);
+  const uint32_t q_s = g_s + G_BYTES<KS>;
+  uint8_t* ok_s = smem + P2_OK_OFF<KS>;
+  const uint32_t full = g_s + P2_BAR_OFF<KS>, empty = full + QSTAGES * 8;
+
+  // G for the block's columns (column n's 16-byte K piece c at c * BN * 16 +
+  // n * 16, as scan_hits_kernel lays it out), and each column's live flag
+  const int8_t* cb = a.codes + col0;
+  for (int idx = threadIdx.x; idx < BN * 2 * KS; idx += WG_THREADS) {
+    const int c = idx / BN, n = idx % BN;
+    uint32_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = 4 * c + q;
+      const int code = j < a.L && n < n_live ? (int)__ldg(cb + j * a.code_stride + n) : 4;
+      w[q] = (unsigned)code < 4u ? 1u << (8 * code) : 0u;
+    }
+    *reinterpret_cast<uint4*>(smem + c * BN * 16 + n * 16) = make_uint4(w[0], w[1], w[2], w[3]);
+    if (c == 0) {
+      bool live = n < n_live && col0 + n < a.n_valid;
+      if (live && a.mask) live = __ldg(a.mask + rev * a.mask_rstride + col0 + n) != 0;
+      ok_s[n] = live;
+    }
+  }
+  ring_init(full, QSTAGES);  // and G visible to wgmma
+  __syncthreads();
+
+  const int cpb = BS64 / CHUNK;
+  const int n = real ? cpb : 0;
+  // as in scan_hits_kernel, the warp index through a shuffle and no early
+  // return: both roles end at the kernel's end (ptxas then honours setmaxnreg)
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+  if (warp >= 8) {  // producer: one thread streams the block's Q chunks
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 8 && lane == 0)
+      for (int i = 0; i < n; ++i) {
+        const int slot = i % QSTAGES;
+        mbar_wait(empty + 8 * slot, ((i / QSTAGES) & 1) ^ 1);
+        bulk_load(q_s + slot * CHUNK_BYTES<KS>,
+                  qc + ((size_t)s * cpb + i) * CHUNK_BYTES<KS>, CHUNK_BYTES<KS>,
+                  full + 8 * slot);
+      }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp / 4, w4 = warp % 4, g = lane / 4, qd = lane % 4;
+    const uint32_t g_wg = g_s + wg * (N / 8) * 128;
+    uint8_t* scores = smem + P2_SCORE_OFF<KS> + threadIdx.x * (N / 2);
+    // bit 2 j + e: whether this thread's column wg N + 8 j + 2 qd + e is live
+    // (64 flags in two registers, where 64 loop-invariant bytes would spill)
+    uint64_t cols = 0;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        cols |= (uint64_t)ok_s[wg * N + 8 * j + 2 * qd + e] << (2 * j + e);
+    int acc[N / 2];
+    for (int i = 0; i < n; ++i) {
+      const int slot = i % QSTAGES;
+      mbar_wait(full + 8 * slot, (i / QSTAGES) & 1);
+      const uint32_t qa = q_s + slot * CHUNK_BYTES<KS>;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        wgmma_step(acc, smem_desc(qa + ks * 2048, 1024, 128),
+                   smem_desc(g_wg + ks * 2 * BN * 16, BN * 16, 128), ks > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * slot);
+      int m = INT_MIN;
+#pragma unroll
+      for (int k = 0; k < N / 2; k += 2) m = max3(m, acc[k], acc[k + 1]);
+      if (!__any_sync(0xffffffffu, m >= a.thresh)) continue;
+      // rows r and r + 8 of the block; a row past BS_M repeats the block's last
+      const int r = i * CHUNK + 16 * w4 + g;
+      const uint32_t rows = (uint32_t)(r < a.BS_M && sp0 + r < a.S) |
+                            (uint32_t)(r + 8 < a.BS_M && sp0 + r + 8 < a.S) << 1;
+      // bit k of hit[k / 32]: whether acc[k] (row r + 8 ((k / 2) & 1), column
+      // 8 (k / 4) + 2 qd + k % 2) is a hit; four registers, not 128 flags.
+      // The scores (0..L) go to the thread's bytes of shared memory, where
+      // the appends below read them back by a computed index
+      uint32_t hit[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int k = 0; k < N / 2; k += 16)
+        *reinterpret_cast<uint4*>(scores + k) = make_uint4(
+            pack_bytes(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]),
+            pack_bytes(acc[k + 4], acc[k + 5], acc[k + 6], acc[k + 7]),
+            pack_bytes(acc[k + 8], acc[k + 9], acc[k + 10], acc[k + 11]),
+            pack_bytes(acc[k + 12], acc[k + 13], acc[k + 14], acc[k + 15]));
+#pragma unroll
+      for (int k = 0; k < N / 2; ++k) {
+        const uint32_t on = (uint32_t)(cols >> (2 * (k / 4) + k % 2)) & rows >> ((k / 2) & 1);
+        hit[k / 32] |= (on & 1u & (acc[k] >= a.thresh)) << (k % 32);
+      }
+      const int hits = __popc(hit[0]) + __popc(hit[1]) + __popc(hit[2]) + __popc(hit[3]);
+      int incl = hits;  // the warp's inclusive prefix sum of hits
+#pragma unroll
+      for (int d = 1; d < 32; d *= 2) {
+        const int up = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += up;
+      }
+      const int total = __shfl_sync(0xffffffffu, incl, 31);
+      int base = 0;
+      if (lane == 0) base = atomicAdd(a.count, total);
+      int at = __shfl_sync(0xffffffffu, base, 0) + incl - hits;
+      // each lane appends its own hits, walking the set bits
+#pragma unroll
+      for (int w = 0; w < 4; ++w)
+        for (uint32_t bits = hit[w]; bits; bits &= bits - 1) {
+          const int k = 32 * w + __ffs(bits) - 1;
+          if (at < a.capacity)
+            a.out[at] = make_int4(sp0 + r + 8 * ((k / 2) & 1),
+                                  (int)col0 + wg * N + 8 * (k / 4) + 2 * qd + k % 2, rev,
+                                  a.L - scores[k]);
+          ++at;
+        }
+      // converged again before the next chunk's aligned wgmma instructions
+      __syncwarp();
+    }
+  }
+}
+
+template <int KS>
+int launch_phase2(const void* qc, const P2Args& a, int BS64, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(phase2_hits_kernel<KS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         P2_SMEM<KS>);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (long long)(a.n_f + a.n_r) * a.n_cc;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  phase2_hits_kernel<KS><<<(unsigned)blocks, WG_THREADS, P2_SMEM<KS>, stream>>>(
+      static_cast<const uint8_t*>(qc), a, BS64);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError(). qc is Q
@@ -248,6 +461,34 @@ extern "C" int scan_block_hits_launch(const void* thresh, const void* qc, const 
     case 2: return launch<2>(qc, a, n_tiles, BS64, st);
     case 3: return launch<3>(qc, a, n_tiles, BS64, st);
     case 4: return launch<4>(qc, a, n_tiles, BS64, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Phase 2: launches phase2_hits_kernel on `stream` over the n_f + n_r pairs
+// and returns cudaGetLastError(). qc is the chunk buffer phase 1 read (KS
+// k-steps, spacer blocks of BS_M rows padded to a multiple of 64); count must
+// be zeroed. The Python wrapper (ops/scan_hits.py::phase2_hits) checks
+// shapes, types and limits (KS <= 4, L <= 32) before calling.
+extern "C" int phase2_hits_launch(const void* qc, const void* codes, const void* pairs_f,
+                                  const void* pairs_r, const void* mask, void* out, void* count,
+                                  int n_f, int n_r, int n_sb_pad8, int SUB, int s_rev,
+                                  int half_blocks, int n_sub, int KS, int L, int BS_M, int P2,
+                                  int S, int n_valid, int thresh, int capacity,
+                                  long long code_stride, long long mask_rstride, void* stream) {
+  if (n_f + n_r == 0) return 0;
+  const P2Args a{static_cast<const long long*>(pairs_f), static_cast<const long long*>(pairs_r),
+                 static_cast<const int8_t*>(codes), static_cast<const uint8_t*>(mask),
+                 static_cast<int4*>(out), static_cast<int*>(count), code_stride, mask_rstride,
+                 n_f, n_r, n_sb_pad8, SUB, s_rev, half_blocks, n_sub, BS_M, P2, L, S, n_valid,
+                 thresh, capacity, (P2 + BN - 1) / BN};
+  const int BS64 = (BS_M + CHUNK - 1) / CHUNK * CHUNK;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (KS) {
+    case 1: return launch_phase2<1>(qc, a, BS64, st);
+    case 2: return launch_phase2<2>(qc, a, BS64, st);
+    case 3: return launch_phase2<3>(qc, a, BS64, st);
+    case 4: return launch_phase2<4>(qc, a, BS64, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -32,6 +32,10 @@ MASK_BIAS = -16384.0  # added to masked-out positions; far below any score
 # launches in matrix_rows mode (the site engine's)
 launches = 0
 matrix_launches = 0
+# phase-2 kernel launches (relaunches included), and of those the relaunches
+# that a full output buffer forced (:func:`phase2_hits`)
+phase2_launches = 0
+phase2_relaunches = 0
 
 _MAX_K = 128  # the kernel's deepest product: 4 k-steps of 32 int8 values
 
@@ -144,7 +148,7 @@ def scan_block_hits_reference(thresh, q_onehot, tiles, bias_tiles, *, L, K, P,
 
 
 def scan_block_hits(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB=1,
-                    BS_M=BS, fold_bias=False, matrix_rows=False):
+                    BS_M=BS, fold_bias=False, matrix_rows=False, qc=None):
     """Phase 1 (hit indicator), the JAX wrapper's contract.
 
     thresh f32 (1,) — a score >= thresh is a hit (callers pass L - v);
@@ -169,7 +173,10 @@ def scan_block_hits(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB=1,
     * additive bias (no fold): any f32 value; it is added to the int32
       column max, and max_r(s_r + b) = max_r(s_r) + b.
 
-    It takes at most 2 bias rows and 4L + the folded rows <= 128."""
+    It takes at most 2 bias rows and 4L + the folded rows <= 128. ``qc``,
+    on a CUDA tensor, is q_onehot already in the kernel's layout
+    (:func:`q_chunks` at :func:`k_eff`'s depth), which a caller that keeps
+    it for phase 2 builds once; the plain version ignores it."""
     if q_onehot.device.type == "cpu":
         return scan_block_hits_reference(
             thresh, q_onehot, tiles, bias_tiles, L=L, K=K, P=P, SUB=SUB,
@@ -178,7 +185,7 @@ def scan_block_hits(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB=1,
     if q_onehot.device.type != "cuda":
         raise ValueError(f"scan_block_hits runs on cpu or cuda, not {q_onehot.device}")
     return _launch(thresh, q_onehot, tiles, bias_tiles, L=L, K=K, P=P, SUB=SUB,
-                   BS_M=BS_M, fold_bias=fold_bias, matrix_rows=matrix_rows)
+                   BS_M=BS_M, fold_bias=fold_bias, matrix_rows=matrix_rows, qc=qc)
 
 
 def k_eff(L: int, bias_rows: int, fold_bias: bool) -> int:
@@ -217,7 +224,7 @@ def q_chunks(q_onehot: torch.Tensor, n_sblocks: int, BS_M: int, K_eff: int) -> t
 
 
 def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,
-            fold_bias, matrix_rows):
+            fold_bias, matrix_rows, qc=None):
     global launches, matrix_launches
     _check(q_onehot, tiles, bias_tiles, L=L, K=K, P=P, SUB=SUB, fold_bias=fold_bias,
            matrix_rows=matrix_rows)
@@ -244,7 +251,13 @@ def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,
     out = torch.zeros((n_tiles, n_sb_pad8, SUB), dtype=torch.float32, device=dev)
     if n_tiles == 0 or n_sblocks == 0:
         return out
-    qc = q_chunks(q_onehot, n_sblocks, BS_M, K_eff)
+    if qc is None:
+        qc = q_chunks(q_onehot, n_sblocks, BS_M, K_eff)
+    elif (qc.dtype != torch.int8 or qc.device != dev or not qc.is_contiguous()
+          or qc.dim() != 5 or qc.shape[1] * 16 != K_eff
+          or qc.shape[0] != n_sblocks * _cdiv(BS_M, 64)):
+        raise ValueError(f"qc {tuple(qc.shape)} {qc.dtype} is not q_chunks of "
+                         f"{n_sblocks} blocks of {BS_M} rows at K_eff {K_eff}")
     tile_stride = tiles.shape[1] * tiles.shape[2]
     code_stride = P if matrix_rows else 1
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -263,3 +276,101 @@ def _launch(thresh, q_onehot, tiles, bias_tiles, *, L, K, P, SUB, BS_M,
     launches += 1
     matrix_launches += bool(matrix_rows)
     return out
+
+
+def phase2_capacity(n_pairs: int, S: int) -> int:
+    """Hit records :func:`phase2_hits` makes room for before it knows the
+    count: a library usually hits its own sites (up to 2 S over both
+    strands), and a phase-1 pair holds a few hits beyond them."""
+    return max(4096, 4 * n_pairs + 2 * S)
+
+
+def phase2_hits(qc, codes, pairs, *, L, v, BS_M, P2, n_sb_pad8, SUB, S, n_sub, code_stride,
+                half_blocks, n_valid=None, mask=None, pairs_rev=None, s_rev=0):
+    """Phase 2 on the card (``csrc/scan_hits.cu::phase2_hits_kernel``):
+    every hit of the (subtile, spacer block) pairs phase 1 found, scored in
+    int8 on the tensor cores, as an (n, 4) int32 tensor of records (spacer,
+    column, strand, mismatches) on the device, in no particular order. No
+    score matrix is written; the one host sync is the read of the hit count.
+
+    qc: the Q chunk buffer phase 1 read (:func:`q_chunks`), whose block s
+    holds spacers (s - half_blocks·[s >= half_blocks]) · BS_M + row, the
+    blocks from half_blocks on being the reverse strand's rows (strand 1);
+    codes: int8, base j of column c at ``codes[j * code_stride + c]``
+    (dense: the scan array, stride 1; site: the (L_pad, n) site codes,
+    stride n); pairs: int64 flat phase-1 indices over (n_tiles, n_sb_pad8,
+    SUB), with subtile t of P2 columns (columns t · P2 ...) and block s;
+    pairs_rev: a second such list from a launch of the reverse rows alone,
+    whose blocks lie ``s_rev`` on in qc; n_sub: subtiles (a pair past them
+    holds nothing); mask: (R, >= n_sub · P2) bool or int8, column c of
+    strand r live iff mask[min(r, R - 1), c] != 0; n_valid: columns at or
+    past it never hit; S: rows whose spacer index is S or more are padding.
+    A hit is a score >= L - v, mismatches L - score: the plain phase 2's
+    exact integers.
+
+    Launches with room for :func:`phase2_capacity` records; if more hits
+    came, it relaunches once with room for exactly those
+    (``phase2_relaunches`` counts it)."""
+    global phase2_relaunches
+    dev = qc.device
+    if dev.type != "cuda":
+        raise ValueError(f"phase2_hits runs on a CUDA device, not {dev}")
+    pairs_rev = pairs[:0] if pairs_rev is None else pairs_rev
+    for name, x, dtypes in (("qc", qc, (torch.int8,)), ("codes", codes, (torch.int8,)),
+                            ("pairs", pairs, (torch.int64,)),
+                            ("pairs_rev", pairs_rev, (torch.int64,)),
+                            ("mask", mask, (torch.bool, torch.int8, torch.uint8))):
+        if x is None:
+            continue
+        if x.device != dev or x.dtype not in dtypes or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtypes} tensor on {dev}, got "
+                             f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
+    K_eff = qc.shape[1] * 16 if qc.dim() == 5 else 0
+    cpb = _cdiv(BS_M, 64)
+    n_blocks = qc.shape[0] // cpb
+    if qc.dim() != 5 or K_eff > _MAX_K or 4 * L > K_eff or qc.shape[0] % cpb:
+        raise ValueError(f"qc {tuple(qc.shape)} is not q_chunks of {BS_M}-row blocks at a "
+                         f"depth of 4L = {4 * L} to {_MAX_K}")
+    if len(pairs_rev) and not 0 < s_rev < n_blocks:
+        raise ValueError(f"s_rev {s_rev} must fall inside qc's {n_blocks} blocks")
+    if (L - 1) * code_stride + n_sub * P2 > codes.numel():
+        raise ValueError(f"codes ({codes.numel()}) end before the last subtile's windows")
+    if mask is not None and (mask.dim() != 2 or mask.shape[1] < n_sub * P2):
+        raise ValueError(f"mask {tuple(mask.shape)} must be (R, >= {n_sub * P2})")
+    if n_sub * P2 >= 2 ** 31:
+        raise ValueError(f"{n_sub} subtiles of {P2} columns do not fit int32 columns")
+    n_pairs = len(pairs) + len(pairs_rev)
+    if n_pairs == 0:
+        return torch.zeros((0, 4), dtype=torch.int32, device=dev)
+    mask_ptr, rstride = 0, 0
+    if mask is not None:
+        mask_ptr = mask.data_ptr()
+        rstride = mask.shape[1] if mask.shape[0] > 1 else 0
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    launch = nvcc.launcher("scan_hits", "phase2_hits_launch",
+                           [vp] * 7 + [i32] * 15 + [i64, i64, vp])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        count = torch.empty(1, dtype=torch.int32, device=dev)
+
+        def run(cap: int):
+            global phase2_launches
+            out = torch.empty((cap, 4), dtype=torch.int32, device=dev)
+            count.zero_()
+            rc = launch(
+                qc.data_ptr(), codes.data_ptr(), pairs.data_ptr(), pairs_rev.data_ptr(),
+                mask_ptr, out.data_ptr(), count.data_ptr(), len(pairs), len(pairs_rev),
+                n_sb_pad8, SUB, s_rev, half_blocks, n_sub, K_eff // 32, L, BS_M, P2, S,
+                min(2 ** 31 - 1 if n_valid is None else n_valid, 2 ** 31 - 1), L - int(v),
+                cap, code_stride, rstride, stream,
+            )
+            if rc != 0:
+                raise RuntimeError(f"phase2_hits kernel launch failed with CUDA error {rc}")
+            phase2_launches += 1
+            return out, int(count.item())
+
+        out, n = run(phase2_capacity(n_pairs, S))
+        if n > len(out):
+            phase2_relaunches += 1
+            out, _ = run(n)
+        return out[:n]

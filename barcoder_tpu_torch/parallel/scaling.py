@@ -180,7 +180,8 @@ def _path(engine: str) -> str:
 
 
 def _launches() -> dict:
-    return {"scan_hits": scan_hits.launches, "scan_max": scan_max.launches}
+    return {"scan_hits": scan_hits.launches, "phase2_hits": scan_hits.phase2_launches,
+            "scan_max": scan_max.launches}
 
 
 def _launched_since(before: dict) -> dict:

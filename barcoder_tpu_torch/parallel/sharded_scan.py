@@ -73,7 +73,7 @@ from ..ops.cuda_scan import (
     extract_matrix, load_sites, onehot_rows, site_artifact_key, site_indicator,
 )
 from ..ops.prep import build_scan_array, revcomp_matrix, site_masks, spacer_matrix
-from ..ops.scan_hits import BS, _cdiv, bias_row, scan_block_hits
+from ..ops.scan_hits import BS, _cdiv, bias_row, k_eff, phase2_hits, q_chunks, scan_block_hits
 from ..ops.scan_max import scan_block_max
 from ..ops.types import STRAND_F, STRAND_R, Hits
 from . import multihost
@@ -264,11 +264,14 @@ class ShardTensors:
     """A ShardState on the mesh: {(library shard, genome shard): tensor on
     that shard's device}. codes holds block d followed by its ``halo`` ring
     codes (the first codes of block (d + 1) mod n_gen); ok and q hold one
-    such dict per strand job. Shards on one device share their tensors."""
+    such dict per strand job, and qc each q in the int8 kernels' layout
+    (:func:`_chunks_to_shards`; empty until :func:`_run` knows the
+    geometry). Shards on one device share their tensors."""
 
     codes: dict
     ok: list
     q: list
+    qc: list
     strands: list
 
 
@@ -363,6 +366,26 @@ def _q_to_shards(q: np.ndarray, mesh: Mesh) -> dict:
         np.asarray(q[li * rows : (li + 1) * rows], np.float32)).to(torch.bfloat16))
 
 
+def _chunks_to_shards(q: dict, n_sblocks: int, BS_M: int, K_eff: int) -> dict:
+    """Each shard's q in the int8 kernels' layout (``scan_hits.q_chunks``),
+    built once and read by phase 1 and phase 2 alike; None on a CPU shard,
+    whose plain phases read q itself. Shards that share a q share its
+    chunks."""
+    made, out = {}, {}
+    for key, t in q.items():
+        if id(t) not in made:
+            made[id(t)] = (q_chunks(t, n_sblocks, BS_M, K_eff) if t.device.type == "cuda"
+                           else None)
+        out[key] = made[id(t)]
+    return out
+
+
+def _q_with_chunks(qs: list, g: _Geom) -> tuple:
+    """(qs, their :func:`_chunks_to_shards`) at the dense phase 1's depth."""
+    K_eff = k_eff(g.L, g.R, g.fold)
+    return qs, [_chunks_to_shards(q, g.n_sblocks_loc, g.BS_M, K_eff) for q in qs]
+
+
 def shard_state_from_numpy(state: ShardState, mesh: Mesh) -> ShardTensors:
     """A :class:`ShardState` (the port's, or arrays rebuilt from the JAX
     engine; bf16 q may come as float32 or as ml_dtypes.bfloat16) → the
@@ -373,6 +396,7 @@ def shard_state_from_numpy(state: ShardState, mesh: Mesh) -> ShardTensors:
         codes=_codes_to_shards(state.codes, mesh, halo),
         ok=[_ok_to_shards(ok, mesh) for ok in state.ok],
         q=[_q_to_shards(q, mesh) for q in state.q],
+        qc=[],  # the state carries no geometry: _run lays q out
         strands=list(state.strands),
     )
 
@@ -481,29 +505,47 @@ def _device_state(q_f, contig: Contig, pam: str, pam_direction: str, mesh: Mesh,
     ok = _GENOME_SHARD_CACHE.get_or_put(
         ("ok", genome, pam, pam_direction),
         lambda: [_ok_to_shards(a, mesh) for a in _ok_blocks(contig, pam, pam_direction, g)])
-    q = _Q_SHARD_CACHE.get_or_put(
+    q, qc = _Q_SHARD_CACHE.get_or_put(
         ("q", _content_digest(q_f), q_f.shape, g.S_loc, g.n_lib, mkey),
-        lambda: [_q_to_shards(a, mesh) for a in _q_onehots(q_f, g)])
-    return ShardTensors(codes=codes, ok=ok, q=q, strands=_strands(g))
+        lambda: _q_with_chunks([_q_to_shards(a, mesh) for a in _q_onehots(q_f, g)], g))
+    return ShardTensors(codes=codes, ok=ok, q=q, qc=qc, strands=_strands(g))
 
 
 # --- the dense engine --------------------------------------------------------
 
-def _phase1(codes, ok, q, thresh, g: _Geom):
+def _phase1(codes, ok, q, thresh, g: _Geom, qc=None):
     """One shard's phase 1: its tiles and bias built on its device, then the
-    hit-indicator kernel (plain torch on the CPU)."""
+    hit-indicator kernel (plain torch on the CPU), reading ``qc`` where it
+    is given (:func:`_chunks_to_shards`)."""
     tiles = _tiles_device_impl(codes, n_starts=g.B, P=g.P, halo=g.halo)
     bias = bias_row(ok > 0)
     bias = bias.reshape(g.R, g.B // g.P, g.P).transpose(0, 1).contiguous()
     return scan_block_hits(thresh, q, tiles, bias, L=g.L, K=g.K, P=g.P, SUB=g.SUB,
-                           BS_M=g.BS_M, fold_bias=g.fold)
+                           BS_M=g.BS_M, fold_bias=g.fold, qc=qc)
 
 
-def _phase2(pairs, codes, ok, q, li: int, d: int, strand, g: _Geom, v: int) -> Hits:
-    """One shard's phase 2: re-score its pairs in batches of
-    ``_pair_chunk`` and decode the hits to global (spacer, position)."""
+def _phase2(pairs, codes, ok, q, qc, li: int, d: int, strand, g: _Geom, v: int) -> Hits:
+    """One shard's phase 2: re-score its pairs (on a card in one launch of
+    the phase-2 kernel on the chunks ``qc`` phase 1 read, else in batches of
+    ``_pair_chunk``) and decode the hits to global (spacer, position)."""
     if len(pairs) == 0:
         return Hits()
+    if qc is not None:
+        n_sb = g.n_sblocks_loc
+        rec = phase2_hits(
+            qc, codes, pairs, mask=ok,
+            half_blocks=g.half_blocks if g.fused else n_sb, n_sb_pad8=_cdiv(n_sb, 8) * 8,
+            SUB=g.SUB, L=g.L, v=v, BS_M=g.BS_M, P2=g.P2, S=g.S_loc, n_sub=g.B // g.P2,
+            code_stride=1,
+        ).cpu().numpy()
+        spacer = li * g.S_loc + rec[:, 0].astype(np.int64)
+        pos = d * g.B + rec[:, 1].astype(np.int64)
+        keep = (spacer < g.S) & (pos < g.n_starts)
+        rev = rec[keep, 2] != 0
+        return Hits(spacer_idx=spacer[keep], pos=pos[keep],
+                    strand=(np.where(rev, STRAND_R, STRAND_F) if strand is None
+                            else np.full(len(rev), strand)).astype(np.int8),
+                    mismatches=rec[keep, 3])
     t_idx, s_idx = _split_pairs(pairs, _cdiv(g.n_sblocks_loc, 8) * 8, g.SUB)
     rev = s_idx >= g.half_blocks if g.fused else torch.zeros_like(s_idx, dtype=torch.bool)
     tiles2 = _tiles_device_impl(codes, n_starts=g.B, P=g.P2, halo=g.halo)[:, 0, :]
@@ -542,17 +584,18 @@ def _thresholds(shards, value: float) -> dict:
 def _run(st: ShardTensors, g: _Geom, mesh: Mesh, v: int) -> Hits:
     shards = _local_shards(mesh)
     thresh = _thresholds(shards, float(g.L - v))
+    qc = st.qc or _q_with_chunks(st.q, g)[1]
     # phase 1 is launched on every shard before any shard's torch.nonzero
     # synchronises, so shards on different cards overlap
     inds = {
         (ji, li, d): _phase1(st.codes[li, d], st.ok[ji][li, d], st.q[ji][li, d],
-                             thresh[str(dev)], g)
+                             thresh[str(dev)], g, qc[ji][li, d])
         for ji in range(len(st.q))
         for (li, d), dev in shards
     }
     out = [
         _phase2(_compact_pairs(ind), st.codes[li, d], st.ok[ji][li, d], st.q[ji][li, d],
-                li, d, st.strands[ji], g, v)
+                qc[ji][li, d], li, d, st.strands[ji], g, v)
         for (ji, li, d), ind in inds.items()
     ]
     return _gather_hits(Hits.concat(out), mesh)
@@ -607,10 +650,13 @@ class _SiteScanRun:
         q_pad = np.full((n_lib * S_loc, L), 4, dtype=np.int8)
         q_pad[:S] = q_f
         # forward rows only; the constant-1 column of a foldable L meets
-        # zero G rows in matrix mode
-        self.q = _Q_SHARD_CACHE.get_or_put(
-            (_content_digest(q_pad), "site", K, n_lib, S_loc, mkey),
-            lambda: _q_to_shards(_host_onehot(q_pad, K, L, 4 * L < K, 0), mesh))
+        # zero G rows in matrix mode, so the chunks stop at the site depth
+        def q_to_shards():
+            q = _q_to_shards(_host_onehot(q_pad, K, L, 4 * L < K, 0), mesh)
+            return q, _chunks_to_shards(q, S_loc // BS_M, BS_M, k_eff(L, 1, False))
+
+        self.q, self.qc = _Q_SHARD_CACHE.get_or_put(
+            (_content_digest(q_pad), "site", K, n_lib, S_loc, mkey), q_to_shards)
         self.mesh, self.positions, self.strands = mesh, positions, strands
         self.S, self.L, self.K, self.SUB, self.P2 = S, L, K, SUB, P2
         self.BS_M, self.Bs, self.S_loc, self.n_sites = BS_M, Bs, S_loc, n_sites
@@ -620,15 +666,29 @@ class _SiteScanRun:
         # phase 1 on every shard before any shard's torch.nonzero syncs
         self.inds = {
             (li, d): site_indicator(self.codes[li, d], self.q[li, d], thresh[str(dev)], P=P,
-                                    L=L, K=K, SUB=SUB, BS_M=BS_M)
+                                    L=L, K=K, SUB=SUB, BS_M=BS_M, qc=self.qc[li, d])
             for (li, d), dev in shards
         }
 
     def _phase2(self, pairs, li: int, d: int) -> Hits:
-        """One shard's phase 2 in batches of ``_pair_chunk``, decoded to
-        global spacer indices and site columns."""
+        """One shard's phase 2 (on a card in one launch of the phase-2
+        kernel, else in batches of ``_pair_chunk``), decoded to global spacer
+        indices and site columns."""
         if len(pairs) == 0:
             return Hits()
+        codes, qc = self.codes[li, d], self.qc[li, d]
+        if qc is not None:
+            n_sb = self.S_loc // self.BS_M
+            rec = phase2_hits(
+                qc, codes, pairs, half_blocks=n_sb, n_sb_pad8=_cdiv(n_sb, 8) * 8, SUB=self.SUB,
+                L=self.L, v=self.v, BS_M=self.BS_M, P2=self.P2, S=self.S_loc,
+                n_sub=self.Bs // self.P2, code_stride=self.Bs, n_valid=self.n_sites - d * self.Bs,
+            ).cpu().numpy()
+            spacer = li * self.S_loc + rec[:, 0].astype(np.int64)
+            keep = spacer < self.S
+            site = d * self.Bs + rec[keep, 1]
+            return Hits(spacer_idx=spacer[keep], pos=self.positions[site].astype(np.int64),
+                        strand=self.strands[site].astype(np.int8), mismatches=rec[keep, 3])
         t_idx, s_idx = _split_pairs(pairs, _cdiv(self.S_loc // self.BS_M, 8) * 8, self.SUB)
         q_blocks = self.q[li, d].reshape(-1, self.BS_M, self.K)
         chunk = _pair_chunk(self.BS_M, self.P2)

@@ -44,7 +44,7 @@ from ..core.coords import fold_hit_coords_vec, get_coords, get_diff
 from ..core.encode import _COMP, _LUT, COMP_ASCII, DECODE_ASCII
 from ..core.genome import Contig, Genome
 from ..core.pam import pam_is_trivial, pam_window_start
-from ..ops import cuda_scan
+from ..ops import cuda_scan, scan_hits
 from ..ops.prep import build_scan_array
 from ..ops.scan import scan_contigs
 from ..ops.types import STRAND_R, Hits
@@ -682,7 +682,9 @@ def run_targets(
     phase / count / summary) that receives the call's stages: prepare,
     scan, annotate, assemble, postprocess, and the counters ``hits``,
     ``scan.pairs`` (the phase-1 pairs that the CUDA engine's phase 2
-    re-scored; 0 on the other backends), ``rows_buffered`` and
+    re-scored; 0 on the other backends), ``scan.phase2_hits`` (the hits that
+    phase 2 found there) and ``scan.phase2_relaunches`` (the phase-2
+    kernel's relaunches for a full output buffer), ``rows_buffered`` and
     ``rows_per_row_strings`` (see postprocess). Each
     stage is also a span of the recorder (utils.profiling.span) under the
     call's ``targets`` span.
@@ -767,7 +769,7 @@ def run_targets(
             # share the spacer prep and pipeline per-contig device work
             # (ops.scan.scan_contigs) instead of paying each contig's round
             # trips serially
-            pairs_before = cuda_scan.pairs
+            before = (cuda_scan.pairs, cuda_scan.phase2_hit_count, scan_hits.phase2_relaunches)
             with span("targets.scan", phases):
                 hits_list = (
                     scan_contigs(
@@ -776,7 +778,10 @@ def run_targets(
                     if eligible  # an empty group must not build library prep
                     else []
                 )
-            phases.count("scan.pairs", cuda_scan.pairs - pairs_before)
+            after = (cuda_scan.pairs, cuda_scan.phase2_hit_count, scan_hits.phase2_relaunches)
+            for name, a, b in zip(("scan.pairs", "scan.phase2_hits", "scan.phase2_relaunches"),
+                                  after, before):
+                phases.count(name, a - b)
             for contig, hits in zip(eligible, hits_list):
                 phases.count("hits", len(hits))
                 contig_hits.append((contig, hits))

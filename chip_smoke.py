@@ -50,8 +50,13 @@ Phases (any failure is a non-zero exit; nothing is caught):
    cuda engine) on request 1's library (NGG, v = 3), joined with the
    features and exported as SAM: its mapped rows, read back from the SAM
    and from the joined frame, equal the cuda engine's Hits, every planted
-   guide at 0 mismatches; ``scan_hits`` launches counted from 0 (the
-   ``api`` path of the kernels line).
+   guide at 0 mismatches; ``scan_hits`` and ``phase2_hits`` launches
+   counted from 0 (the ``api`` path of the kernels line).
+3d. the phase-2 kernel (``phase2_hits``) against the plain phase 2 on the
+   same scan job: equal hits as a multiset, at the resident cell's shape
+   (6,418 guides, L = 20, site engine, v = 3) and the panel cell's (9,817
+   guides, L = 32, NGNC, dense engine, v = 2), timed beside the plain
+   route, beside its int8 bound, with its ptxas registers and spills.
 5. the sharded path: request 1 through ``run_targets(backend="sharded")``
    (the site engine; the frame must equal the cuda backend's), then
    ``sharded_scan`` over request 1's library and genome on a 1-shard mesh
@@ -62,7 +67,7 @@ Phases (any failure is a non-zero exit; nothing is caught):
    from request 1's, each equal to its solo scan; and
    ``sharded_scan_block_max`` on both meshes (block_max and totals equal to
    its plain version's on the card, and a second call on the same arrays
-   takes its tiles and bias from the cache and answers the same); both
+   takes its tiles and bias from the cache and answers the same); all three
    kernels, and ``scan_hits`` in
    both modes, must have launched in that run. Steady walls of the cuda
    backend and the sharded meshes; then the scaling harness
@@ -70,8 +75,9 @@ Phases (any failure is a non-zero exit; nothing is caught):
    all --single-chip``: the flagship on the site engine, the dense engine,
    the block max and the one-card engine) in a subprocess, its JSON printed
    on one line: the site, dense and one-card hit counts must agree, and
-   every row it timed must have launched its kernel (the harness counts
-   launches per row). Last, the harness's block-max workload in this
+   every row it timed must have launched its kernels (the harness counts
+   launches per row; a scan row both ``scan_hits`` and ``phase2_hits``).
+   Last, the harness's block-max workload in this
    process, with the launch count at 0 before it: block_max and totals
    equal to the plain version's, and every spacer scoring L at its own
    genome window.
@@ -82,7 +88,9 @@ Phases (any failure is a non-zero exit; nothing is caught):
    have launched in ``matrix_rows`` mode; every kept guide must be its own
    site's window at 0 mismatches), then the kernel at the design scan's
    full shape (36 tiles x 589,824 rows; its plain version and the
-   ``torch._int_mm`` yardstick over 32,768-row chunks) and, on a 200 kb
+   ``torch._int_mm`` yardstick over 32,768-row chunks), the phase-2 kernel
+   at that shape against the plain phase 2 as in 3d (every candidate on its
+   site table, v = 1) and, on a 200 kb
    slice, the ``cuda`` backend's design frame (dense, then site-promoted)
    equal to the ``torch`` backend's.
 6. the three experiment kernels (the ports of ``experiments/int8_bench.py``,
@@ -684,14 +692,21 @@ def phase3_main_path(rec, genome, libs, plants) -> dict:
     cuda_scan._SITE_DEV_CACHE.clear()
     cuda_scan._SITE_SEEN.clear()
     out = {}
-    per_request = {}
+    per_request, p2_per_request = {}, {}
     for name, lib, pam, v, planted, tables in requests:
         scan_hits.launches = scan_hits.matrix_launches = 0
+        p2_launches, p2_relaunches = scan_hits.phase2_launches, scan_hits.phase2_relaunches
         t0 = time.perf_counter()
         result = run_targets(lib, genome, pam, v, backend="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         per_request[name] = (scan_hits.launches, scan_hits.matrix_launches)
+        # phase 2: one kernel launch a contig, both strands, whatever the engine
+        # (a relaunch for a full output buffer aside)
+        p2_per_request[name] = scan_hits.phase2_launches - p2_launches
+        p2 = p2_per_request[name] - (scan_hits.phase2_relaunches - p2_relaunches)
+        if p2 != 1:
+            raise AssertionError(f"{name}: {p2} phase-2 kernel launches, expected 1")
         # the engine each request took, read from the site-table cache: the
         # second request of the (genome, NGG, 20) key builds the only table
         if len(cuda_scan._SITE_DEV_CACHE) != tables:
@@ -720,6 +735,10 @@ def phase3_main_path(rec, genome, libs, plants) -> dict:
     log(f"phase 3: scan_hits launches (all, matrix_rows) per request: {per_request}")
     out["launches_dense"] = per_request["request1_L20_NGG_v3"][0] + per_request[
         "request3_L32_NGNC_v1"][0]
+    out["phase2_launches"] = {
+        "targets_cuda": p2_per_request["request1_L20_NGG_v3"]
+        + p2_per_request["request3_L32_NGNC_v1"],
+        "site": p2_per_request["request2_L20_NGG_v3_steady"]}
     out["launches_site"] = per_request["request2_L20_NGG_v3_steady"][0]
     out["launches_per_request"] = per_request
     return out
@@ -733,6 +752,13 @@ def planted_tuples(seqs, plants) -> set:
 def hit_tuples(h) -> set:
     return set(zip(h.spacer_idx.tolist(), h.pos.tolist(), h.strand.tolist(),
                    h.mismatches.tolist()))
+
+
+def multiset(h):
+    from collections import Counter
+
+    return Counter(zip(h.spacer_idx.tolist(), h.pos.tolist(), h.strand.tolist(),
+                       h.mismatches.tolist()))
 
 
 def phase3_hits_vs_plain(genome, libs, plants) -> dict:
@@ -846,6 +872,104 @@ def phase3b_site_kernel(genome, libs) -> dict:
     return out
 
 
+def kernel_device_ms(fn, name: str, reps: int = 5) -> float:
+    """Mean device milliseconds of the kernels named ``name`` (a substring)
+    per call of ``fn``, from a torch.profiler trace of ``reps`` calls after a
+    warm-up: the kernel's own time, without the host syncs around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", 0) or e.cuda_time_total
+             for e in prof.key_averages() if name in e.key)
+    if not us:
+        raise AssertionError(f"the profiler saw no device time of {name}")
+    return us / 1e3 / reps
+
+
+def phase2_job(genome, L: int, pam: str, v: int, size: int, engine: str, seed: int):
+    """A scan job at the shape of a benchmark cell's phase 2, phase 1 done:
+    ``size`` guides drawn at the genome's ``pam`` sites (90%; the rest
+    random, as the resident traffic draws them), on the site engine (its
+    table cached) or the dense one."""
+    from barcoder_tpu_torch.ops import cuda_scan
+    from barcoder_tpu_torch.ops.prep import enumerate_sites
+
+    contig = genome.contigs[0]
+    rng = np.random.default_rng(seed)
+    _pos, _strands, codes = enumerate_sites(contig, L, pam, "downstream")
+    q_f = codes[rng.choice(len(codes), size, replace=False)].copy()
+    rand = rng.random(size) >= 0.9
+    q_f[rand] = rng.integers(0, 4, (int(rand.sum()), L))
+    prep = cuda_scan._QPrep(q_f, v, pam, "downstream", cuda_scan.DEFAULT_P, 512,
+                            torch.device("cuda"))
+    if engine == "site":
+        return prep, cuda_scan._SiteScanJob(
+            prep, cuda_scan._site_table_for(prep, contig, "always"))
+    return prep, cuda_scan._ScanJob(prep, contig)
+
+
+def phase3d_phase2_kernel(genome) -> dict:
+    """The phase-2 kernel against the plain phase 2 (:func:`phase2_case`)
+    at the resident cell's shape (6,418 guides, the mean library, L = 20 on
+    the site engine, v = 3) and the panel cell's (9,817 guides, L = 32,
+    NGNC, the dense engine, v = 2); phase 5b adds the design scan's."""
+    out = {}
+    for name, L, pam, v, size, engine in (("resident_L20_site", 20, "NGG", 3, 6418, "site"),
+                                           ("panel_L32_dense", 32, "NGNC", 2, 9817, "dense")):
+        prep, job = phase2_job(genome, L, pam, v, size, engine, SEED + L)
+        out[name] = phase2_case(f"phase 3d {name}", prep, job)
+        del job, prep
+    return out
+
+
+def phase2_case(what: str, prep, job, plain_reps: int = 2) -> dict:
+    """One scan job's phase 2 on the kernel against the plain phase 2 (same
+    job, same device inputs: equal hits as a multiset): the kernel's device
+    time (profiler), both routes' times (CUDA events around the route, host
+    syncs included), the int8 bound, the share and the ptxas registers."""
+    from barcoder_tpu_torch.ops import cuda_scan, nvcc, scan_hits
+
+    site = isinstance(job, cuda_scan._SiteScanJob)
+    L = prep.L
+    got, want = job._collect_kernel(), job._collect()
+    torch.cuda.synchronize()
+    if multiset(got) != multiset(want):
+        raise AssertionError(f"{what}: the kernel's hits differ from the plain "
+                             f"phase 2's ({len(got)} against {len(want)})")
+    pair_lists = [job.pairs] if site else list(job.phase1.values())
+    n_pairs = sum(len(x) for x in pair_lists)
+    ms = kernel_device_ms(job._collect_kernel, "phase2_hits_kernel")
+    route_ms = cuda_ms(job._collect_kernel)
+    plain_ms = cuda_ms(job._collect, reps=plain_reps)
+    codes = job.table.codes_lp if site else job.scan_dev
+    K_eff = job.qc.shape[1] * 16
+    products = n_pairs * prep.bs * prep.P2
+    n_bytes = nbytes(job.qc, codes, *pair_lists) + 16 * len(got) + (
+        0 if site else nbytes(job.ok))
+    b = bound(2 * 4 * L * products, "int8", n_bytes)
+    b["issued_bound_ms"] = bound(2 * K_eff * products, "int8", n_bytes)["bound_ms"]
+    (r,) = [r for r in nvcc.ptxas_report("scan_hits")
+            if f"phase2_hits_kernel<{K_eff // 32}>" in r["function"]
+            or f"phase2_hits_kernelILi{K_eff // 32}E" in r["function"]]
+    out = dict(max_abs_err=0.0, ms=ms, route_ms=route_ms, plain_ms=plain_ms, pairs=n_pairs,
+               hits=len(got), k_eff=K_eff, share=b["bound_ms"] / ms, registers=r["registers"],
+               spill_stores=r["spill_stores"], spill_loads=r["spill_loads"],
+               relaunches=scan_hits.phase2_relaunches,
+               shape=dict(L=L, pam=prep.pam, v=int(prep.max_mismatches), spacers=prep.S,
+                          engine="site" if site else "dense", BS_M=prep.bs, P2=prep.P2), **b)
+    log(f"{what}: {n_pairs} pairs, {len(got)} hits equal to the plain phase 2's; "
+        f"kernel {ms:.4f} ms (device), route {route_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), share {b['bound_ms'] / ms:.4f}, "
+        f"issued {b['issued_bound_ms']:.4f} ms; {r['registers']} registers, spills "
+        f"{r['spill_stores']}/{r['spill_loads']} bytes")
+    return out
+
+
 def site_case(genome, libs, L: int, pam: str, v: int):
     """The kernel's arguments in matrix_rows mode for library ``L`` on its
     ``pam`` sites of the genome, and the number of sites: at L = 20 the
@@ -922,6 +1046,7 @@ def phase3c_class_api(genome, libs, plants, cuda_hits) -> dict:
     with tempfile.TemporaryDirectory() as d:
         sam_path = os.path.join(d, "aln.sam")
         scan_hits.launches = 0
+        p2_before = scan_hits.phase2_launches
         t0 = time.perf_counter()
         with ScanRunner(genome) as runner:
             joined = runner.align(seqs, num_mismatches=3, pam="NGG", join_features=True,
@@ -929,6 +1054,7 @@ def phase3c_class_api(genome, libs, plants, cuda_hits) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = scan_hits.launches
+        p2_launches = scan_hits.phase2_launches - p2_before
         with open(sam_path) as fh:
             back = parse_sam(fh)
     rows = lambda df: set(zip(df.Barcode, df.Start.astype(int), df.Strand,  # noqa: E731
@@ -944,14 +1070,16 @@ def phase3c_class_api(genome, libs, plants, cuda_hits) -> dict:
     for guide, pos, strand, _pam in plants[20]:
         if (guide, pos, "+" if strand == "F" else "-", 0) not in want:
             raise AssertionError(f"planted guide {guide} at {pos} missing from ScanRunner")
-    if launches < 1:
-        raise AssertionError("ScanRunner(genome) did not launch scan_hits")
+    if launches < 1 or p2_launches < 1:
+        raise AssertionError(f"ScanRunner(genome) launched scan_hits {launches} times and "
+                             f"phase2_hits {p2_launches} times")
     genes = int((joined.Type == "gene").sum())
     log(f"phase 3c: ScanRunner(genome) (auto = cuda) {wall:.4f} s: {len(want)} mapped rows == "
         f"cuda_hits, SAM parsed back ({len(back)} records), {genes} gene rows joined, every "
-        f"planted guide at 0 mismatches, scan_hits launches {launches}")
+        f"planted guide at 0 mismatches, scan_hits launches {launches}, phase2_hits "
+        f"{p2_launches}")
     return dict(wall_s=wall, mapped=len(want), sam_records=len(back), gene_rows=genes,
-                launches=launches)
+                launches=launches, phase2_launches=p2_launches)
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -1020,6 +1148,7 @@ def phase5_sharded(genome, libs, plants, cuda_hits) -> dict:
     # the path, with every launch counter at 0 just before it
     scan_hits.launches = scan_hits.matrix_launches = 0
     scan_max.launches = 0
+    p2_before = scan_hits.phase2_launches
     t0 = time.perf_counter()
     result = run_targets(libs[20], genome, "NGG", 3, backend="sharded")
     torch.cuda.synchronize()
@@ -1031,7 +1160,8 @@ def phase5_sharded(genome, libs, plants, cuda_hits) -> dict:
         many[n] = sharded_scan_many(many_libs, contig, 3, "NGG", mesh=mesh, P=P)
         block[n] = sharded_scan_block_max(q, scan, mask, mesh, L=L, K=K, P=P)
     torch.cuda.synchronize()
-    launches = {"scan_hits": scan_hits.launches, "scan_max": scan_max.launches}
+    launches = {"scan_hits": scan_hits.launches, "scan_max": scan_max.launches,
+                "phase2_hits": scan_hits.phase2_launches - p2_before}
     matrix = scan_hits.matrix_launches
     log(f"phase 5: launches on the sharded path {launches}, {matrix} of scan_hits in "
         f"matrix_rows mode; caches {json.dumps(serving_cache_stats())}")
@@ -1114,16 +1244,16 @@ def phase5_sharded(genome, libs, plants, cuda_hits) -> dict:
     if len({r["hits"] for r in report["flagship"] + report["dense"]
             + [report["single_chip"]]}) != 1:
         raise AssertionError("harness: the site, dense and single-card hit counts differ")
-    # each timed row went through its kernel (the harness counts launches)
-    for rows, kernel in ((report["flagship"], "scan_hits"), (report["dense"], "scan_hits"),
-                         (report["blockmax"], "scan_max"),
-                         ([report["single_chip"]], "scan_hits")):
+    # each timed row went through its kernels (the harness counts launches)
+    scans = report["flagship"] + report["dense"] + [report["single_chip"]]
+    for rows, kernel in ((scans, "scan_hits"), (scans, "phase2_hits"),
+                         (report["blockmax"], "scan_max")):
         for row in rows:
             if row["launches"][kernel] == 0:
                 raise AssertionError(f"harness row {row} never launched the {kernel} kernel")
     out["harness_launches"] = {
-        "scan_hits": sum(r["launches"]["scan_hits"] for r in
-                         report["flagship"] + report["dense"] + [report["single_chip"]]),
+        "scan_hits": sum(r["launches"]["scan_hits"] for r in scans),
+        "phase2_hits": sum(r["launches"]["phase2_hits"] for r in scans),
         "scan_max": sum(r["launches"]["scan_max"] for r in report["blockmax"]),
     }
     out["harness_block_max"] = harness_block_max(meshes["1"], P)
@@ -1209,12 +1339,13 @@ def slice_genome(rec, n: int):
 
 def phase5b_design(rec, genome) -> dict:
     """The design workload on the 4.6 Mb genome: the CLI in a subprocess,
-    run_design in this process (the path, counts at 0 just before it), the
-    kernel at the design scan's full shape, and the cuda backend's frame
+    run_design in this process (the path, counts at 0 just before it), both
+    kernels at the design scan's full shape, and the cuda backend's frame
     against the torch backend's on a 200 kb slice."""
     import pandas as pd
 
-    from barcoder_tpu_torch.ops import scan_hits
+    from barcoder_tpu_torch.ops import cuda_scan, scan_hits
+    from barcoder_tpu_torch.ops.prep import spacer_matrix
     from barcoder_tpu_torch.pipeline.design import find_candidate_guides, run_design
     from barcoder_tpu_torch.seqio.genbank import write_genbank
 
@@ -1244,14 +1375,18 @@ def phase5b_design(rec, genome) -> dict:
         f"{len(proc.stdout.splitlines()) - 1} guides kept")
 
     scan_hits.launches = scan_hits.matrix_launches = 0
+    p2_before = scan_hits.phase2_launches
     t0 = time.perf_counter()
     final, tr, cands = run_design(genome, "NGG", 20, backend="cuda")
     torch.cuda.synchronize()
     out["wall_s"] = time.perf_counter() - t0
     out["launches"], out["matrix_launches"] = scan_hits.launches, scan_hits.matrix_launches
+    out["phase2_launches"] = scan_hits.phase2_launches - p2_before
     if out["matrix_launches"] == 0 or out["launches"] != out["matrix_launches"]:
         raise AssertionError(f"design launched scan_hits {out['launches']} times, "
                              f"{out['matrix_launches']} in matrix_rows mode")
+    if out["phase2_launches"] == 0:
+        raise AssertionError("design never launched the phase2_hits kernel")
     if final.to_csv(sep="\t", index=False, na_rep="None") != proc.stdout:
         raise AssertionError("the design CLI's TSV differs from run_design's frame")
     check_design_guides(final, rec.seq)
@@ -1262,12 +1397,20 @@ def phase5b_design(rec, genome) -> dict:
     log(f"phase 5b: run_design ({out['wall_s']:.2f} s, enumeration {out['enumerate_s']:.2f} "
         f"s): {len(cands)} candidates, {len(tr.table)} target rows, {len(final)} kept, each "
         f"its own site at 0 mismatches; scan_hits launches {out['launches']} (matrix_rows "
-        f"{out['matrix_launches']}); phases {out['phases_s']}")
+        f"{out['matrix_launches']}), phase2_hits {out['phase2_launches']}; phases "
+        f"{out['phases_s']}")
 
     args, kw, n_sites = design_case(genome, candidates)
     out["kernel"] = matrix_kernel_check(f"phase 5b design_L20 ({n_sites} sites)", args, kw,
                                         rows=1 << 15, plain_reps=1)
     del args
+    # phase 2 at the design scan's shape: every candidate on its site table
+    prep = cuda_scan._get_prep(spacer_matrix(candidates), 1, "NGG", "downstream",
+                               cuda_scan.DEFAULT_P, 512, torch.device("cuda"))
+    job = cuda_scan._SiteScanJob(prep, cuda_scan._site_table_for(prep, genome.contigs[0],
+                                                                 "always"))
+    out["phase2"] = phase2_case("phase 5b design_L20_site", prep, job, plain_reps=1)
+    del job, prep
 
     small = slice_genome(rec, 200_000)
     want, _, _ = run_design(small, "NGG", 20, backend="torch")
@@ -1738,7 +1881,7 @@ def phase8_worker(pid: int, port: int, spec_path: str, out_path: str) -> int:
     and ``sharded_scan_many`` over 8 libraries; then ``run_count`` with
     ``engine="auto"`` (``sharded`` under two processes, owned chunks) on
     the single-end reads and the pairs. Writes the Hits (.npz) and a JSON
-    report: walls, counts, owned reads, scan_hits launches."""
+    report: walls, counts, owned reads, kernel launches."""
     import pickle
 
     from barcoder_tpu_torch.ops import scan_hits
@@ -1754,7 +1897,7 @@ def phase8_worker(pid: int, port: int, spec_path: str, out_path: str) -> int:
     with open(spec_path, "rb") as fh:
         spec = pickle.load(fh)
     contig, seqs, P = spec["contig"], spec["seqs"], 16384
-    scan_hits.launches = scan_hits.matrix_launches = 0
+    scan_hits.launches = scan_hits.matrix_launches = scan_hits.phase2_launches = 0
     mesh = make_mesh(devices=[dev] * 2)
     mesh2d = make_mesh_2d(2, devices=[dev] * 2)
     calls = {
@@ -1771,7 +1914,8 @@ def phase8_worker(pid: int, port: int, spec_path: str, out_path: str) -> int:
             hits[name] = call()
             torch.cuda.synchronize()
             walls_s[name].append(time.perf_counter() - t0)
-    launches = {"scan_hits": scan_hits.launches, "matrix_rows": scan_hits.matrix_launches}
+    launches = {"scan_hits": scan_hits.launches, "matrix_rows": scan_hits.matrix_launches,
+                "phase2_hits": scan_hits.phase2_launches}
     arrays = {}
     for name, h in hits.items():
         for k, one in enumerate(h if name == "many" else [h]):
@@ -1906,8 +2050,10 @@ def phase8_multihost(rec, genome, libs, plants, cuda_hits, count: dict,
             with open(path) as fh:
                 r = json.load(fh)
             reports.append(r)
-            if r["launches"]["scan_hits"] == 0:
-                raise AssertionError(f"phase 8 worker {pid} never launched the scan_hits kernel")
+            for kernel in ("scan_hits", "phase2_hits"):
+                if r["launches"][kernel] == 0:
+                    raise AssertionError(f"phase 8 worker {pid} never launched the {kernel} "
+                                         "kernel")
             for name in ("site", "dense", "2d"):
                 h = read_hits(path + ".npz", name)
                 if not same_hits(h, cuda_hits) or not planted <= hit_tuples(h):
@@ -1936,6 +2082,7 @@ def phase8_multihost(rec, genome, libs, plants, cuda_hits, count: dict,
                                                             "reads_per_s")}
                                       for k, c in r["counts"].items()}} for r in reports]
         out["launches"] = sum(r["launches"]["scan_hits"] for r in reports)
+        out["phase2_launches"] = sum(r["launches"]["phase2_hits"] for r in reports)
         for r in out["workers"]:
             log(f"phase 8 worker on {r['device']}: site, dense, 2-D and many == phase 3 / solo, "
                 f"planted found; walls (first, steady) {r['walls_s']}; host merges "
@@ -2322,6 +2469,7 @@ def main(argv=None) -> int:
     main_path = phase3_main_path(rec, genome, libs, plants)
     vs_plain, cuda_hits = phase3_hits_vs_plain(genome, libs, plants)
     site = phase3b_site_kernel(genome, libs)
+    p2 = phase3d_phase2_kernel(genome)
     phase3_cli(rec)
     api = phase3c_class_api(genome, libs, plants, cuda_hits)
     sharded = phase5_sharded(genome, libs, plants, cuda_hits)
@@ -2340,7 +2488,8 @@ def main(argv=None) -> int:
 
     log(json.dumps({"build_s": build_s, "phase2": k, "phase2_request_shape": k_req,
                     "phase2b": k2b, "phase3": main_path,
-                    "hits_vs_plain": vs_plain, "phase3b_site": site, "phase3c_api": api,
+                    "hits_vs_plain": vs_plain, "phase3b_site": site, "phase3d_phase2": p2,
+                    "phase3c_api": api,
                     "phase5": sharded,
                     "phase5b_design": design, "phase6": experiments,
                     "phase6_entry_points": entry_points, "phase7_counting": counting,
@@ -2359,6 +2508,12 @@ def main(argv=None) -> int:
         "scan_max": {"sharded": sharded["launches"]["scan_max"],
                      "harness": sharded["harness_launches"]["scan_max"],
                      "harness_block_max": sharded["harness_block_max"]["launches"]},
+        "phase2_hits": {**main_path["phase2_launches"],
+                        "api": api["phase2_launches"],
+                        "design": design["phase2_launches"],
+                        "sharded": sharded["launches"]["phase2_hits"],
+                        "harness": sharded["harness_launches"]["phase2_hits"],
+                        "multihost": multihost["phase2_launches"]},
         "colmax_mma": {"int8_bench": entry_points["int8_bench"]["colmax_mma"]},
         "phase1_ablate": {"phase1_ablate": entry_points["phase1_ablate"]["phase1_ablate"]},
         "phase1_epilogue": {"phase1_bench": entry_points["phase1_bench"]["phase1_epilogue"]},
@@ -2386,6 +2541,9 @@ def main(argv=None) -> int:
         kernel("scan_hits", "scan_hits.cu", "barcoder_tpu/ops/pallas_scan.py:124",
                max(worst(k), worst(site), k_req["max_abs_err"], design["kernel"]["max_abs_err"]),
                k_req, {**k, "request_shape": k_req, **site, "design_L20": design["kernel"]}),
+        kernel("phase2_hits", "scan_hits.cu",
+               "none: pallas_scan.py's phase 2 (extract_spec, extract_full) is XLA",
+               0.0, p2["resident_L20_site"], {**p2, "design_L20_site": design["phase2"]}),
         kernel("scan_max", "scan_max.cu", "barcoder_tpu/ops/pallas_scan.py:77",
                max(worst(k2b), sharded["block_max_err"],
                    sharded["harness_block_max"]["max_abs_err"]), k2b["L20_additive_SUB1"],

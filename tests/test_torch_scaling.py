@@ -70,7 +70,7 @@ def test_rates_and_efficiencies(report, engine):
         assert r["efficiency"] == pytest.approx(r["speedup"] / r["devices"])
         assert ("hits" in r) == (engine != "blockmax")
         # CPU tensors take the plain versions: no kernel launches
-        assert r["launches"] == {"scan_hits": 0, "scan_max": 0}
+        assert r["launches"] == {"scan_hits": 0, "phase2_hits": 0, "scan_max": 0}
 
 
 def test_flagship_hits_match_the_oracle(report):

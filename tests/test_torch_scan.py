@@ -323,3 +323,45 @@ def test_phase1_on_identical_state(L, pam):
     # the port's engine on this contig agrees with the JAX engine's Hits
     assert_same(cs.cuda_scan(guides, contig, 2, pam, P=P, sub_width=128, device=CPU,
                              site_mode="never"), job.collect())
+
+
+@pytest.mark.parametrize("L,pam,site", [(20, "NGG", "AGG"), (32, "NGNC", "AGTC")])
+def test_phase2_kernel_route_on_the_model(monkeypatch, L, pam, site):
+    """The dense engine's kernel route (``_collect_kernel``: phase 1's pair
+    lists, the PAM masks and the chunk buffer, as the card gets them) with
+    the kernel's plain model in its place gives the plain phase 2's Hits,
+    strand-fused at L = 20 and per strand at L = 32, pad rows included."""
+    from .test_torch_phase2_gpu import phase2_model
+
+    rec, guides, sites = planted_case(61 + L, L=L, n_guides=6, pam=site)
+    contig = contig_from_record(rec)
+    library = guides + [random_seq(L, np.random.default_rng(L)) for _ in range(5)]
+    monkeypatch.setattr(cs, "phase2_hits", phase2_model)
+    prep = cs._QPrep(spacer_matrix(library), 2, pam, "downstream", P, 512, CPU)
+    job = cs._ScanJob(prep, contig)
+    assert job.qc is None and prep.fused == (L == 20) and prep.S_pad > prep.S
+    job.qc = prep.chunks("fr")
+    got = job._collect_kernel()
+    assert_same(got, job._collect())
+    assert_same(got, oracle_scan(library, contig, 2, pam))
+    for i, pos, strand in sites:
+        assert (i, pos, strand, 0) in tuples(got)
+
+
+@pytest.mark.parametrize("site_mode", ["never", "always"])
+def test_cpu_route_takes_the_plain_phase2(monkeypatch, site_mode):
+    """On the CPU both engines' phase 2 is the plain version: the kernel is
+    never called, the hits are counted and nothing relaunches."""
+    from barcoder_tpu_torch.ops import scan_hits
+
+    def no_kernel(*args, **kwargs):
+        raise AssertionError("the CPU route reached the phase-2 kernel")
+
+    monkeypatch.setattr(cs, "phase2_hits", no_kernel)
+    rec, guides, sites = planted_case(67)
+    contig = contig_from_record(rec)
+    hits0, relaunches0 = cs.phase2_hit_count, scan_hits.phase2_relaunches
+    got = cs.cuda_scan(guides, contig, 2, "NGG", P=P, device=CPU, site_mode=site_mode)
+    assert_same(got, oracle_scan(guides, contig, 2, "NGG"))
+    assert cs.phase2_hit_count - hits0 == len(got) >= len(sites)
+    assert scan_hits.phase2_relaunches == relaunches0

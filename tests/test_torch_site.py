@@ -313,3 +313,58 @@ def test_site_phase1_counts_bit_equal_on_jax_state(L, v):
         pair_cap=1 << 14, interpret=True, **kw)
     port_pairs = cs.phase1_matrix(st["codes_lp"], st["q_f"], st["thresh"], **kw)
     assert np.array_equal(port_pairs.numpy(), np.asarray(pairs)[: int(n_pairs)])
+
+
+@pytest.mark.parametrize("v", [0, 1, 2, 3])
+def test_site_phase2_kernel_route_on_the_model(monkeypatch, v):
+    """The site engine's kernel route (``_collect_kernel``: the pair list,
+    the site codes at stride n_sites_b, n_sites) with the kernel's plain
+    model in its place gives the plain phase 2's Hits."""
+    from .test_torch_phase2_gpu import phase2_model
+
+    rng = np.random.default_rng(71 + v)
+    rec = make_record(n=5000, topology="circular", seed=71 + v)
+    guides = [random_seq(20, rng) for _ in range(140)]
+    for i in range(0, 140, 20):
+        plant_guide(rec, guides[i], 150 + 31 * i, pam="TGG", strand="F" if i % 40 else "R")
+    plant_guide(rec, guides[1], 4990, pam="AGG")  # across the origin
+    contig = contig_from_record(rec)
+    monkeypatch.setattr(cs, "phase2_hits", phase2_model)
+    prep = cs._QPrep(cs.spacer_matrix(guides), v, "NGG", "downstream", 1024, 256, "cpu")
+    job = cs._SiteScanJob(prep, cs._site_table_for(prep, contig, "always"))
+    assert job.qc is None and prep.S_pad > prep.S
+    job.qc = prep.chunks("f")
+    kernel, plain = job._collect_kernel(), job._collect()
+    for f in ("spacer_idx", "pos", "strand", "mismatches"):  # the same order too
+        assert np.array_equal(getattr(kernel, f), getattr(plain, f)), f
+    got = tuples(kernel)
+    assert got == tuples(oracle_scan(guides, contig, v, pam="NGG"))
+    assert (1, 4990, 0, 0) in got
+
+
+@pytest.mark.parametrize("site_mode", ["never", "always"])
+def test_run_targets_reports_the_phase2_counters(monkeypatch, site_mode):
+    """``scan.phase2_hits`` and ``scan.phase2_relaunches`` sit beside
+    ``scan.pairs`` in run_targets' counters; on the CPU route every hit is
+    counted and nothing relaunches."""
+    from barcoder_tpu.core.genome import Genome
+    from barcoder_tpu.seqio.library import BarcodeLibrary
+    from barcoder_tpu_torch.pipeline import targets as port_targets
+
+    def scan_contigs(spacers, contigs, max_mismatches, pam, pam_direction, backend):
+        return cs.cuda_scan_contigs(spacers, contigs, max_mismatches, pam, pam_direction,
+                                    P=1024, device="cpu", site_mode=site_mode)
+
+    monkeypatch.setattr(port_targets, "scan_contigs", scan_contigs)
+    rng = np.random.default_rng(73)
+    rec = make_record(n=6000, seed=73)
+    guides = [random_seq(20, rng) for _ in range(12)]
+    for i, g in enumerate(guides):
+        plant_guide(rec, g, 200 + 450 * i, pam="CGG", strand="R" if i % 2 else "F")
+    tr = port_targets.run_targets(BarcodeLibrary([(f"g{i}", g) for i, g in enumerate(guides)]),
+                                  Genome([contig_from_record(rec)], source="synthetic"), "NGG",
+                                  1, backend="torch")
+    counters = tr.stats["profile"]["counters"]
+    assert counters["scan.phase2_relaunches"] == 0
+    assert counters["scan.phase2_hits"] == counters["hits"] >= 12
+    assert counters["scan.pairs"] > 0
