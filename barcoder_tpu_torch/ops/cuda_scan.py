@@ -15,14 +15,14 @@ mask allows it.
       the threshold and the PAM mask fused — strand-fused (two folded bias
       rows, one launch) when 4L + 2 <= K, one additive launch per strand
       otherwise (L = 32);
-  phase 2: re-score only the nonzero pairs on subtiles of P2 = P / SUB
-      positions and emit exact positions + mismatch counts. On a CUDA device
-      one kernel launch a contig (``scan_hits.phase2_hits``) takes phase 1's
-      pair list as it stands on the device, both strands, and writes only
-      the hits; on the CPU the plain torch version, the kernel's reference,
-      scores one-hot products either in one speculative batch over both
-      strands (``extract_spec``) or, past ``spec_B`` pairs, in per-strand
-      batches (``_extract_chunk``).
+  phase 2 (``scan_hits.phase2_hits``: the CUDA kernel): re-score only the
+      nonzero pairs on subtiles of P2 = P / SUB positions and emit exact
+      positions + mismatch counts, in one launch a contig that takes phase
+      1's pair list as it stands on the device, both strands, and writes
+      only the hits.
+
+On the CPU both wrappers take their kernel's plain torch reference, so the
+engine runs one route on every device.
 
 The pair-index layout over (n_tiles, n_sb_pad8, SUB) and its decode are the
 JAX engine's, so the two engines' phase-1 outputs compare directly. Where
@@ -35,9 +35,10 @@ table (``prep.enumerate_sites``: ~N/8 columns for NGG, R-strand windows
 revcomped at enumeration). Phase 1 is the same kernel in its
 ``matrix_rows`` mode over the (L_pad, n_sites_b) int8 site-code matrix,
 forward spacer rows only and no PAM bias; phase 2 re-scores the nonzero
-pairs on gathered site subtiles (``extract_matrix``, one batched routine
-where the JAX engine has a speculative one-fetch path beside a batched
-one) and maps columns back through the table's positions and strands.
+pairs of the site subtiles, each contiguous in the site-code matrix (one
+kernel launch where the JAX engine has a speculative one-fetch path beside
+a batched one), and maps columns back through the table's positions and
+strands.
 The Hits are the dense engine's for every mismatch budget; which engine a
 scan takes changes its cost only.
 """
@@ -56,19 +57,18 @@ from ..utils import artifacts
 from ..utils.profiling import span
 from .prep import build_scan_array, enumerate_sites, spacer_matrix
 from .scan_hits import (
-    BS, _onehot_g, bias_row, build_g_onehot, k_eff, phase2_hits, q_chunks, scan_block_hits,
+    BS, bias_row, k_eff, phase2_hits, q_chunks, scan_block_hits,
 )
 from .types import STRAND_F, STRAND_R, Hits
 
 DEFAULT_P = 16384  # genome positions per phase-1 tile
 MAX_PAM = 12  # pattern slots in the PAM spec (reference PAMs are 2-4 nt)
-EXTRACT_BATCH = 4096  # pairs per plain phase-2 batch at P2 <= 512
 
 # phase-1 pairs that phase 2 re-scores, summed over every scan since the
 # process started, from the sizes torch.nonzero has already synced
 # (run_targets reports its own scans' share as the counter ``scan.pairs``)
 pairs = 0
-# hits phase 2 found (pad rows dropped), on either route, summed the same way
+# hits phase 2 found (pad rows dropped), summed the same way
 # (run_targets reports its share as ``scan.phase2_hits``)
 phase2_hit_count = 0
 
@@ -335,67 +335,6 @@ def phase1_fused(scan_dev, n_real, q_all, shift_f, pat_f, shift_r, pat_r, thresh
     return _compact_pairs(ind)
 
 
-def _split_pairs(pairs, n_sb_pad8: int, SUB: int):
-    """Flat pair index over (n_tiles, n_sb_pad8, SUB) → (subtile index on
-    the P2 grid, spacer block). Works on numpy arrays and tensors alike."""
-    t_big = pairs // (n_sb_pad8 * SUB)
-    rem = pairs % (n_sb_pad8 * SUB)
-    return t_big * SUB + rem % SUB, rem // SUB
-
-
-def extract_spec(q_blocks_all, scan_dev, n_real, shift_f, pat_f, shift_r, pat_r,
-                 pairs, *, n_starts, halo, L, K, P2, thresh, circular, n_sb_pad8,
-                 SUB, half_blocks):
-    """Speculative phase 2 over ALL phase-1 pairs of both strands in one
-    batch (forward spacer blocks are s_idx < half_blocks, reverse above).
-    Returns (slot, row, column, mismatches) of every hit, with row and
-    column inside the slot's (bs, P2) block.
-
-    The JAX version gathers with jnp indexing, which clamps an out-of-range
-    index where torch raises; here every index is in range by construction
-    (indicator pad rows are zero, so s_idx < n_sblocks and t_idx <
-    n_tiles2)."""
-    t_idx, s_idx = _split_pairs(pairs, n_sb_pad8, SUB)
-    tiles = _tiles_device_impl(scan_dev, n_starts=n_starts, P=P2, halo=halo)
-    ok_f = _pam_ok_device(scan_dev, n_real, shift_f, pat_f, n_starts_b=n_starts,
-                          L=L, circular=circular)
-    ok_r = _pam_ok_device(scan_dev, n_real, shift_r, pat_r, n_starts_b=n_starts,
-                          L=L, circular=circular)
-    is_rev = s_idx >= half_blocks
-    mask_sel = torch.where(
-        is_rev[:, None], ok_r.reshape(-1, P2)[t_idx], ok_f.reshape(-1, P2)[t_idx]
-    )  # (B, P2)
-    return _score_pairs(q_blocks_all[s_idx], tiles[t_idx][:, 0, :], mask_sel, L=L,
-                        K=K, P=P2, thresh=thresh)
-
-
-def _extract_chunk(q_blocks_all, tiles, mask, sc, tc, *, L, K, P, thresh):
-    """Phase-2 scoring of a batch of (spacer-block sc, subtile tc) pairs of
-    one strand: (batch index, row, column, mismatches) of every hit.
-    q_blocks_all (n_sblocks, bs, K) bf16; tiles (n_tiles2, 1, P + halo)
-    int32; mask (n_tiles2, P) bool."""
-    return _score_pairs(q_blocks_all[sc], tiles[tc][:, 0, :], mask[tc], L=L, K=K,
-                        P=P, thresh=thresh)
-
-
-def _score_pairs(q, g_codes, mask, *, L, K, P, thresh):
-    """The phase-2 body shared by both paths: q (B, bs, K) one-hot rows,
-    g_codes (B, P + halo) subtile codes, mask (B, P) PAM mask →
-    (pair, row, column, mismatches) of every hit."""
-    return _score_onehot(q, build_g_onehot(g_codes, L=L, K=K, P=P), mask, L=L,
-                         thresh=thresh)
-
-
-def _score_onehot(q, g, mask, *, L, thresh):
-    """q (B, bs, K) one-hot rows against one-hot G (B, K, P) under mask
-    (B, P) → (pair, row, column, mismatches) of every hit."""
-    scores = torch.bmm(q.to(torch.float32), g)
-    # scores are exact integers: mismatches <= v  <=>  scores >= L - v
-    hit = (scores >= L - thresh) & mask[:, None, :]
-    b, row, col = torch.nonzero(hit, as_tuple=True)
-    return b, row, col, (L - scores[b, row, col]).to(torch.int32)
-
-
 def _count_pairs(*found: torch.Tensor) -> None:
     global pairs
     pairs += sum(len(t) for t in found)
@@ -407,8 +346,8 @@ def _records_in_hits_order(rec: torch.Tensor, col_key=None) -> np.ndarray:
     strand: keys unique, so no ties) and fetched. ``col_key``: position · 2 +
     strand of each column, where a column is a site; else the column is the
     position. The kernel appends in no order, and a host sort of hits in
-    random order costs ~7x one of the plain route's nearly sorted batches
-    (0.57 s for 2.4 M hits)."""
+    random order costs ~7x one of nearly sorted batches (0.57 s for 2.4 M
+    hits)."""
     col = rec[:, 1].long()
     key = col_key[col] if col_key is not None else col * 2 + rec[:, 2]
     return rec[torch.argsort(rec[:, 0].long() << 34 | key)].cpu().numpy()
@@ -418,10 +357,6 @@ def _counted(hits: Hits) -> Hits:
     global phase2_hit_count
     phase2_hit_count += len(hits)
     return hits
-
-
-def _np(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy()
 
 
 class _QPrep:
@@ -452,9 +387,6 @@ class _QPrep:
                 f"subtile width {self.P2} must cover the halo {self.halo} "
                 f"(sub_width too small for L={L})"
             )
-        # phase-2 batches of EXTRACT_BATCH pairs up to P2 = 512, shrunk
-        # proportionally past that to bound the (batch, bs, P2) scores
-        self.extract_batch = max(256, (EXTRACT_BATCH * 512) // max(self.P2, 512))
         self.bs = 512 if S >= 2048 else (256 if S >= 512 else BS)
         self.S_pad = _geom_bucket(S, self.bs)
         self.max_mismatches = max_mismatches
@@ -476,15 +408,8 @@ class _QPrep:
         )
         self.q_dev = {STRAND_F: q_f_dev, STRAND_R: q_r_dev}
         self.q_all = torch.cat([q_f_dev, q_r_dev]) if self.fused else None
-        self.q_blocks_fused = (
-            self.q_all.reshape(-1, self.bs, K) if self.fused else None
-        )
         self.thresh_dev = torch.full((1,), L - max_mismatches, dtype=torch.float32,
                                      device=device)
-        # the plain phase 2's one-batch speculative path covers scans with
-        # <= spec_B nonzero (subtile, block) pairs; larger ones take
-        # per-strand batches
-        self.spec_B = 1024
         # the int8 kernels' depth: the dense phase 1's (its folded bias rows
         # included) and the site engine's (no bias)
         self.k_dense = k_eff(L, 2, True) if self.fused else k_eff(L, 1, 4 * L < K)
@@ -513,8 +438,7 @@ class _ScanJob:
     """One contig's scan against a _QPrep library: construction ships the
     scan array (span ``scan.prep``) and runs phase 1 (``scan.phase1``, until
     ``torch.nonzero`` has sized the pairs on the host); collect() runs
-    phase 2 (the kernel on a CUDA device, the plain version on the CPU) and
-    assembles Hits (``scan.phase2``)."""
+    phase 2 and assembles Hits (``scan.phase2``)."""
 
     def __init__(self, prep: _QPrep, contig: Contig):
         self.prep = prep
@@ -555,7 +479,7 @@ class _ScanJob:
                 _pam_ok_device(self.scan_dev, n, p.shift[s], p.pat[s],
                                n_starts_b=self.n_starts_b, L=p.L, circular=self.circular)
                 for s in (STRAND_F, STRAND_R)])
-            self.qc = p.chunks("fr") if p.device.type == "cuda" else None
+            self.qc = p.chunks("fr")
             if p.fused:
                 self.phase1 = {"fused": self._phase1_fused()}
             else:
@@ -578,10 +502,8 @@ class _ScanJob:
 
     def _phase1(self, strand):
         p = self.prep
-        qc = None
-        if self.qc is not None:  # this strand's half of the chunks
-            half = len(self.qc) // 2
-            qc = self.qc[:half] if strand == STRAND_F else self.qc[half:]
+        half = len(self.qc) // 2  # this strand's half of the chunks
+        qc = self.qc[:half] if strand == STRAND_F else self.qc[half:]
         return phase1_full(
             self.scan_dev, self.n_real, p.q_dev[strand], p.shift[strand],
             p.pat[strand], p.thresh_dev, n_starts=self.n_starts_b, P=p.P,
@@ -589,132 +511,29 @@ class _ScanJob:
             circular=self.circular, ok=self.ok[strand], qc=qc,
         )
 
-    def _decode_spec(self, pairs, slot, row, col, mm) -> Hits:
-        """Hits from extract_spec's (slot, row, column, mismatches); the
-        inverse of the slot/row-space encoding."""
-        p = self.prep
-        if len(slot) == 0:
-            return Hits()
-        pair = pairs[slot]
-        t_idx, s_blk = _split_pairs(pair, self._n_sb_pad8(), p.SUB)
-        half = p.S_pad // p.bs
-        rev = s_blk >= half
-        spacer_idx = (s_blk - rev * half) * p.bs + row
-        pos = t_idx * p.P2 + col
-        keep = spacer_idx < p.S
-        return Hits(
-            spacer_idx=spacer_idx[keep].astype(np.int64),
-            pos=pos[keep].astype(np.int64),
-            strand=np.where(rev[keep], STRAND_R, STRAND_F).astype(np.int8),
-            mismatches=mm[keep].astype(np.int32),
-        )
-
-    def _decode_pairs(self, pairs):
-        """(t_idx subtile indices, s_idx block indices) of phase-1 pairs; the
-        layout is (n_tiles, n_sb_pad8, SUB), whose pad rows are zero, so
-        s_idx < n_sblocks always."""
-        t_idx, s_idx = _split_pairs(_np(pairs), self._n_sb_pad8(), self.prep.SUB)
-        in_range = t_idx < self.n_tiles2
-        return t_idx[in_range], s_idx[in_range]
-
     def collect(self) -> Hits:
+        """Phase 2 in one call over both strands' pairs: the strand-fused
+        list, or the forward list then the reverse one (whose rows are the
+        chunks' second half)."""
         if self.n_starts <= 0:
             return Hits()
         with span("scan.phase2"):
-            if self.qc is not None:
-                return _counted(self._collect_kernel())
-            return _counted(self._collect())
-
-    def _collect_kernel(self) -> Hits:
-        """Phase 2 in one kernel launch over both strands' pairs: the
-        strand-fused list, or the forward list then the reverse one (whose
-        rows are the chunks' second half)."""
-        p = self.prep
-        half = p.S_pad // p.bs
-        if p.fused:
-            pairs_f, pairs_r = self.phase1["fused"], None
-        else:
-            pairs_f, pairs_r = self.phase1[STRAND_F], self.phase1[STRAND_R]
-        rec = _records_in_hits_order(phase2_hits(
-            self.qc, self.scan_dev, pairs_f, pairs_rev=pairs_r, s_rev=half, mask=self.ok,
-            half_blocks=half, n_sb_pad8=self._n_sb_pad8(), SUB=p.SUB, L=p.L,
-            v=p.max_mismatches, BS_M=p.bs, P2=p.P2, S=p.S, n_sub=self.n_tiles2,
-            code_stride=1,
-        ))
-        return Hits(spacer_idx=rec[:, 0].astype(np.int64), pos=rec[:, 1].astype(np.int64),
-                    strand=np.where(rec[:, 2] != 0, STRAND_R, STRAND_F).astype(np.int8),
-                    mismatches=rec[:, 3].copy())
-
-    def _collect(self) -> Hits:
-        """The plain phase 2 (the kernel's reference)."""
-        p = self.prep
-        P2, bs, K, S = p.P2, p.bs, p.K, p.S
-        thresh = int(p.max_mismatches)
-
-        strand_pairs = {}
-        if p.fused:
-            pairs = self.phase1["fused"]
-            if len(pairs) <= p.spec_B:
-                slot, row, col, mm = extract_spec(
-                    p.q_blocks_fused, self.scan_dev, self.n_real,
-                    p.shift[STRAND_F], p.pat[STRAND_F],
-                    p.shift[STRAND_R], p.pat[STRAND_R], pairs,
-                    n_starts=self.n_starts_b, halo=p.halo, L=p.L, K=K, P2=P2,
-                    thresh=thresh, circular=self.circular,
-                    n_sb_pad8=self._n_sb_pad8(), SUB=p.SUB,
-                    half_blocks=p.S_pad // bs,
-                )
-                return self._decode_spec(
-                    _np(pairs), _np(slot), _np(row), _np(col), _np(mm)
-                ).sorted()
-            t_idx, s_idx = self._decode_pairs(pairs)
-            n_sb_half = p.S_pad // bs
-            rev = s_idx >= n_sb_half
-            strand_pairs[STRAND_F] = (t_idx[~rev], s_idx[~rev])
-            strand_pairs[STRAND_R] = (t_idx[rev], s_idx[rev] - n_sb_half)
-        else:
-            for strand in (STRAND_F, STRAND_R):
-                strand_pairs[strand] = self._decode_pairs(self.phase1[strand])
-
-        # batched phase 2, per strand: the subtile matrix is shared, only
-        # the PAM mask differs
-        out = []
-        tiles_shared = None
-        for strand in (STRAND_F, STRAND_R):
-            t_idx, s_idx = strand_pairs[strand]
-            if len(t_idx) == 0:
-                continue
-            if tiles_shared is None:
-                tiles_shared = _tiles_device_impl(self.scan_dev, n_starts=self.n_starts_b,
-                                                  P=P2, halo=p.halo)
-            q_blocks_all = p.q_dev[strand].reshape(-1, bs, K)
-            mask_s = _pam_ok_device(
-                self.scan_dev, self.n_real, p.shift[strand], p.pat[strand],
-                n_starts_b=self.n_starts_b, L=p.L, circular=self.circular,
-            ).reshape(-1, P2)
-            for c0 in range(0, len(t_idx), p.extract_batch):
-                tc = t_idx[c0 : c0 + p.extract_batch]
-                sc = s_idx[c0 : c0 + p.extract_batch]
-                bi, si, pi, mm = (
-                    _np(x) for x in _extract_chunk(
-                        q_blocks_all, tiles_shared, mask_s,
-                        torch.from_numpy(sc).to(p.device),
-                        torch.from_numpy(tc).to(p.device),
-                        L=p.L, K=K, P=P2, thresh=thresh,
-                    )
-                )
-                spacer_idx = sc[bi] * bs + si
-                pos = tc[bi] * P2 + pi
-                keep = spacer_idx < S
-                out.append(
-                    Hits(
-                        spacer_idx=spacer_idx[keep].astype(np.int64),
-                        pos=pos[keep].astype(np.int64),
-                        strand=np.full(int(keep.sum()), strand, np.int8),
-                        mismatches=mm[keep].astype(np.int32),
-                    )
-                )
-        return Hits.concat(out).sorted()
+            p = self.prep
+            half = p.S_pad // p.bs
+            if p.fused:
+                pairs_f, pairs_r = self.phase1["fused"], None
+            else:
+                pairs_f, pairs_r = self.phase1[STRAND_F], self.phase1[STRAND_R]
+            rec = _records_in_hits_order(phase2_hits(
+                self.qc, self.scan_dev, pairs_f, pairs_rev=pairs_r, s_rev=half, mask=self.ok,
+                half_blocks=half, n_sb_pad8=self._n_sb_pad8(), SUB=p.SUB, L=p.L,
+                v=p.max_mismatches, BS_M=p.bs, P2=p.P2, S=p.S, n_sub=self.n_tiles2,
+                code_stride=1,
+            ))
+            return _counted(Hits(
+                spacer_idx=rec[:, 0].astype(np.int64), pos=rec[:, 1].astype(np.int64),
+                strand=np.where(rec[:, 2] != 0, STRAND_R, STRAND_F).astype(np.int8),
+                mismatches=rec[:, 3].copy()))
 
 
 # --- the site-compacted engine ------------------------------------------------
@@ -744,18 +563,6 @@ def phase1_matrix(codes_lp, q_onehot, thresh, *, P, L, K, SUB, BS_M, qc=None):
     """The pairs of :func:`site_indicator` (``pallas_scan.phase1_matrix``)."""
     return _compact_pairs(site_indicator(codes_lp, q_onehot, thresh, P=P, L=L, K=K, SUB=SUB,
                                          BS_M=BS_M, qc=qc))
-
-
-def extract_matrix(q_blocks_all, codes_lp, n_valid: int, t_idx, s_idx, *, L, K, P2, thresh):
-    """Site-compacted phase 2 on a batch of (site subtile t_idx, spacer block
-    s_idx) pairs: each pair's block of one-hot rows against the one-hot G of
-    its P2 gathered site columns; columns at or past ``n_valid`` never hit.
-    Returns (pair, row, column, mismatches) of every hit."""
-    L_pad, n = codes_lp.shape
-    g = codes_lp[:L].reshape(L, n // P2, P2)[:, t_idx].transpose(0, 1)  # (B, L, P2)
-    col = t_idx[:, None] * P2 + torch.arange(P2, device=t_idx.device)
-    return _score_onehot(q_blocks_all[s_idx], _onehot_g(g, K=K), col < n_valid, L=L,
-                         thresh=thresh)
 
 
 class _SiteTable:
@@ -878,54 +685,28 @@ class _SiteScanJob:
         self.prep, self.table = prep, table
         p = prep
         with span("scan.phase1"):
-            self.qc = p.chunks("f") if p.device.type == "cuda" else None
+            self.qc = p.chunks("f")
             self.pairs = phase1_matrix(table.codes_lp, p.q_dev[STRAND_F], p.thresh_dev,
                                        P=p.P, L=p.L, K=p.K, SUB=p.SUB, BS_M=p.bs, qc=self.qc)
             _count_pairs(self.pairs)
 
     def collect(self) -> Hits:
+        """Phase 2 in one call: the site columns are contiguous per subtile
+        in ``codes_lp`` (code stride n_sites_b), so nothing is gathered;
+        columns past n_sites never hit."""
         with span("scan.phase2"):
-            if self.qc is not None:
-                return _counted(self._collect_kernel())
-            return _counted(self._collect())
-
-    def _collect_kernel(self) -> Hits:
-        """Phase 2 in one kernel launch: the site columns are contiguous per
-        subtile in ``codes_lp`` (code stride n_sites_b), so nothing is
-        gathered; columns past n_sites never hit."""
-        p, tab = self.prep, self.table
-        rec = _records_in_hits_order(phase2_hits(
-            self.qc, tab.codes_lp, self.pairs, half_blocks=p.S_pad // p.bs,
-            n_sb_pad8=_cdiv(p.S_pad // p.bs, 8) * 8, SUB=p.SUB, L=p.L, v=p.max_mismatches,
-            BS_M=p.bs, P2=p.P2, S=p.S, n_sub=tab.n_sites_b // p.P2,
-            code_stride=tab.n_sites_b, n_valid=tab.n_sites,
-        ), tab.order_key())
-        site = rec[:, 1]
-        return Hits(spacer_idx=rec[:, 0].astype(np.int64),
-                    pos=tab.positions[site].astype(np.int64),
-                    strand=tab.strands[site].astype(np.int8),
-                    mismatches=rec[:, 3].copy())
-
-    def _collect(self) -> Hits:
-        """The plain phase 2 (the kernel's reference)."""
-        p, tab = self.prep, self.table
-        n_sb_pad8 = _cdiv(p.S_pad // p.bs, 8) * 8
-        t_idx, s_idx = _split_pairs(self.pairs, n_sb_pad8, p.SUB)
-        q_blocks = p.q_dev[STRAND_F].reshape(-1, p.bs, p.K)
-        out = []
-        for c0 in range(0, len(t_idx), p.extract_batch):
-            tc, sc = t_idx[c0 : c0 + p.extract_batch], s_idx[c0 : c0 + p.extract_batch]
-            b, row, col, mm = extract_matrix(q_blocks, tab.codes_lp, tab.n_sites, tc, sc,
-                                             L=p.L, K=p.K, P2=p.P2,
-                                             thresh=int(p.max_mismatches))
-            spacer = sc[b] * p.bs + row
-            keep = spacer < p.S
-            site = _np((tc[b] * p.P2 + col)[keep])
-            out.append(Hits(spacer_idx=_np(spacer[keep]).astype(np.int64),
-                            pos=tab.positions[site].astype(np.int64),
-                            strand=tab.strands[site].astype(np.int8),
-                            mismatches=_np(mm[keep]).astype(np.int32)))
-        return Hits.concat(out).sorted()
+            p, tab = self.prep, self.table
+            rec = _records_in_hits_order(phase2_hits(
+                self.qc, tab.codes_lp, self.pairs, half_blocks=p.S_pad // p.bs,
+                n_sb_pad8=_cdiv(p.S_pad // p.bs, 8) * 8, SUB=p.SUB, L=p.L, v=p.max_mismatches,
+                BS_M=p.bs, P2=p.P2, S=p.S, n_sub=tab.n_sites_b // p.P2,
+                code_stride=tab.n_sites_b, n_valid=tab.n_sites,
+            ), tab.order_key())
+            site = rec[:, 1]
+            return _counted(Hits(spacer_idx=rec[:, 0].astype(np.int64),
+                                 pos=tab.positions[site].astype(np.int64),
+                                 strand=tab.strands[site].astype(np.int8),
+                                 mismatches=rec[:, 3].copy()))
 
 
 def _scan_contig(prep: _QPrep, contig: Contig, site_mode: str) -> Hits:
@@ -971,8 +752,8 @@ def cuda_scan_contigs(
 ) -> list[Hits]:
     """Scan many contigs against one library on ``device`` (results in
     INPUT ORDER), with the library prep built once and shared. On a CUDA
-    device phase 1 runs the CUDA kernel; on the CPU it runs the kernel's
-    plain torch version (tests). PAMs longer than MAX_PAM take the plain
+    device both phases run their CUDA kernels; on the CPU they run the
+    kernels' plain torch references (tests). PAMs longer than MAX_PAM take the plain
     ``torch_scan`` on the same device, as the JAX engine routes them to
     ``jax_scan``.
 

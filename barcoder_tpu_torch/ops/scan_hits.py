@@ -1,15 +1,17 @@
-"""Phase-1 hit-indicator kernel: the port of
-``barcoder_tpu/ops/pallas_scan.py::_scan_hits_kernel`` / ``scan_block_hits``.
+"""The scan's two hand-written kernels: phase 1's hit indicator, the port
+of ``barcoder_tpu/ops/pallas_scan.py::_scan_hits_kernel`` /
+``scan_block_hits``, and phase 2's hit records.
 
 :func:`scan_block_hits` keeps the JAX wrapper's argument list and output
-layout. A CUDA tensor launches the hand-written kernel in
-``csrc/scan_hits.cu`` (an int8 product on the tensor cores with ``wgmma``,
-built with ``nvcc`` for sm_90a at first use and loaded with ctypes, by
-``nvcc.py``); a CPU tensor takes :func:`scan_block_hits_reference`, the
-plain torch version with the same contract. Nothing falls back: a kernel
-that does not build or launch raises.
+layout; :func:`phase2_hits` re-scores phase 1's pairs and returns the hits.
+Each sends a CUDA tensor to its hand-written kernel in ``csrc/scan_hits.cu``
+(int8 products on the tensor cores with ``wgmma``, built with ``nvcc`` for
+sm_90a at first use and loaded with ctypes, by ``nvcc.py``) and a CPU
+tensor to its reference, the plain torch version with the same contract:
+:func:`scan_block_hits_reference` and :func:`phase2_hits_reference`.
+Nothing falls back: a kernel that does not build or launch raises.
 
-Both compute, for each (genome tile t, spacer block s), the number of
+Phase 1 computes, for each (genome tile t, spacer block s), the number of
 columns in each of SUB subtiles whose best biased score over the block's
 rows reaches ``thresh``. The scores are small integers and the bias values
 (0 and MASK_BIAS) are exact in bf16, so both versions agree bit for bit
@@ -285,13 +287,63 @@ def phase2_capacity(n_pairs: int, S: int) -> int:
     return max(4096, 4 * n_pairs + 2 * S)
 
 
+def _phase2_batch(BS_M: int, P2: int) -> int:
+    """Pairs per batch of :func:`phase2_hits_reference`: bounds its (batch,
+    BS_M, P2) f32 score transient to ~1 GiB, the JAX engine's rule for its
+    phase-2 batches."""
+    pc = (1 << 28) // max(BS_M * P2, 1)
+    return max(256, 1 << max(pc.bit_length() - 1, 0))
+
+
+def phase2_hits_reference(qc, codes, pairs, *, L, v, BS_M, P2, n_sb_pad8, SUB, S, n_sub,
+                          code_stride, half_blocks, n_valid=None, mask=None, pairs_rev=None,
+                          s_rev=0):
+    """Plain torch version of :func:`phase2_hits`, on its arguments, with its
+    result: Q read back out of the chunk layout, G one-hot from the codes at
+    stride ``code_stride``, every score tested against L - v, the column
+    mask (row min(strand, R - 1)), n_valid and the real rows, in batches of
+    :func:`_phase2_batch` pairs. Products of 0/1 values summed in float32
+    are exact integers. Launches nothing and counts nothing."""
+    dev = qc.device
+    K = qc.shape[1] * 16
+    q = qc.permute(0, 2, 3, 1, 4).reshape(-1, _cdiv(BS_M, 64) * 64, K)[:, :BS_M]
+    pairs_rev = pairs[:0] if pairs_rev is None else pairs_rev
+    flat = torch.cat([pairs, pairs_rev])
+    row_len = n_sb_pad8 * SUB
+    t = flat // row_len * SUB + flat % row_len % SUB
+    s = flat % row_len // SUB
+    s[len(pairs):] += s_rev
+    # pad subtiles past n_sub are dropped, as the kernel drops them: a torch
+    # gather raises on an index out of range where a jnp one clamps
+    t, s = t[t < n_sub], s[t < n_sub]
+    j, lane, row = (torch.arange(n, device=dev) for n in (L, P2, BS_M))
+    out = [torch.zeros((0, 4), dtype=torch.int64, device=dev)]
+    batch = _phase2_batch(BS_M, P2)
+    for b0 in range(0, len(t), batch):
+        tb, sb = t[b0 : b0 + batch], s[b0 : b0 + batch]
+        cols = tb[:, None] * P2 + lane  # (B, P2)
+        g = codes.reshape(-1)[j[None, :, None] * code_stride + cols[:, None, :]].long()
+        scores = torch.bmm(q[sb].to(torch.float32), _onehot_g(g, K=K))  # (B, BS_M, P2)
+        rev = (sb >= half_blocks).long()
+        sp0 = (sb - rev * half_blocks) * BS_M
+        live = cols < (2 ** 31 - 1 if n_valid is None else n_valid)
+        if mask is not None:
+            live &= mask[rev.clamp(max=mask.shape[0] - 1)[:, None], cols] != 0
+        real = sp0[:, None] + row < S
+        b, r, c = torch.nonzero((scores >= L - v) & live[:, None, :] & real[:, :, None],
+                                as_tuple=True)
+        out.append(torch.stack([sp0[b] + r, cols[b, c], rev[b], L - scores[b, r, c].long()], 1))
+    return torch.cat(out).to(torch.int32)
+
+
 def phase2_hits(qc, codes, pairs, *, L, v, BS_M, P2, n_sb_pad8, SUB, S, n_sub, code_stride,
                 half_blocks, n_valid=None, mask=None, pairs_rev=None, s_rev=0):
-    """Phase 2 on the card (``csrc/scan_hits.cu::phase2_hits_kernel``):
-    every hit of the (subtile, spacer block) pairs phase 1 found, scored in
-    int8 on the tensor cores, as an (n, 4) int32 tensor of records (spacer,
-    column, strand, mismatches) on the device, in no particular order. No
-    score matrix is written; the one host sync is the read of the hit count.
+    """Phase 2: every hit of the (subtile, spacer block) pairs phase 1
+    found, as an (n, 4) int32 tensor of records (spacer, column, strand,
+    mismatches) on qc's device, in no particular order. A CUDA qc launches
+    ``csrc/scan_hits.cu::phase2_hits_kernel``, which scores in int8 on the
+    tensor cores and writes no score matrix (the one host sync is the read
+    of the hit count); a CPU qc takes :func:`phase2_hits_reference`.
 
     qc: the Q chunk buffer phase 1 read (:func:`q_chunks`), whose block s
     holds spacers (s - half_blocks·[s >= half_blocks]) · BS_M + row, the
@@ -305,16 +357,21 @@ def phase2_hits(qc, codes, pairs, *, L, v, BS_M, P2, n_sb_pad8, SUB, S, n_sub, c
     holds nothing); mask: (R, >= n_sub · P2) bool or int8, column c of
     strand r live iff mask[min(r, R - 1), c] != 0; n_valid: columns at or
     past it never hit; S: rows whose spacer index is S or more are padding.
-    A hit is a score >= L - v, mismatches L - score: the plain phase 2's
-    exact integers.
+    A hit is a score >= L - v, mismatches L - score: the reference's exact
+    integers.
 
-    Launches with room for :func:`phase2_capacity` records; if more hits
-    came, it relaunches once with room for exactly those
+    The kernel launches with room for :func:`phase2_capacity` records; if
+    more hits came, it relaunches once with room for exactly those
     (``phase2_relaunches`` counts it)."""
     global phase2_relaunches
     dev = qc.device
+    if dev.type == "cpu":
+        return phase2_hits_reference(
+            qc, codes, pairs, L=L, v=v, BS_M=BS_M, P2=P2, n_sb_pad8=n_sb_pad8, SUB=SUB, S=S,
+            n_sub=n_sub, code_stride=code_stride, half_blocks=half_blocks, n_valid=n_valid,
+            mask=mask, pairs_rev=pairs_rev, s_rev=s_rev)
     if dev.type != "cuda":
-        raise ValueError(f"phase2_hits runs on a CUDA device, not {dev}")
+        raise ValueError(f"phase2_hits runs on cpu or cuda, not {dev}")
     pairs_rev = pairs[:0] if pairs_rev is None else pairs_rev
     for name, x, dtypes in (("qc", qc, (torch.int8,)), ("codes", codes, (torch.int8,)),
                             ("pairs", pairs, (torch.int64,)),

@@ -12,7 +12,7 @@ per shard. Columns are independent windows, so there is no halo; a hit's
 global column is d * Bs + t * P2 + lane. Phase 1 per shard is the
 hit-indicator kernel in its ``matrix_rows`` mode (forward rows only, no
 bias), launched on every shard before any ``torch.nonzero`` syncs; phase 2
-re-scores each shard's pairs on gathered site subtiles. On a 2-D mesh the
+re-scores each shard's pairs on its site subtiles. On a 2-D mesh the
 library axis is split too. ``sharded_scan_many`` serves many libraries
 against one genome with ``max_pending`` scans in flight.
 
@@ -31,7 +31,8 @@ Dense engine design, as in the JAX package:
     spare G rows; L = 32 leaves no spare row and takes one additive launch
     per strand;
   - phase 2 re-scores each shard's nonzero (subtile, spacer-block) pairs on
-    its own device and decodes global positions as ``d * B + column``.
+    its own device (``ops.scan_hits.phase2_hits``, the CUDA kernel on a
+    card) and decodes global positions as ``d * B + column``.
 
 What the port does differently, and why:
 
@@ -69,8 +70,8 @@ import torch
 
 from ..core.genome import Contig
 from ..ops.cuda_scan import (
-    _compact_pairs, _content_digest, _score_pairs, _split_pairs, _tiles_device_impl,
-    extract_matrix, load_sites, onehot_rows, site_artifact_key, site_indicator,
+    _compact_pairs, _content_digest, _tiles_device_impl, load_sites, onehot_rows,
+    site_artifact_key, site_indicator,
 )
 from ..ops.prep import build_scan_array, revcomp_matrix, site_masks, spacer_matrix
 from ..ops.scan_hits import BS, _cdiv, bias_row, k_eff, phase2_hits, q_chunks, scan_block_hits
@@ -152,13 +153,6 @@ def _phase2_geom(P: int, sub_width: int) -> tuple[int, int]:
             f"(powers of two always work)"
         )
     return SUB, P2
-
-
-def _pair_chunk(BS_M: int, P2: int) -> int:
-    """Pairs per phase-2 batch: bounds the (batch, BS_M, P2) f32 score
-    transient to ~1 GiB (the JAX engine's ``_pair_chunk``)."""
-    pc = (1 << 28) // max(BS_M * P2, 1)
-    return max(256, 1 << max(pc.bit_length() - 1, 0))
 
 
 def _host_onehot(q_codes: np.ndarray, K: int, L: int, fold: bool, bias_col: int):
@@ -368,14 +362,12 @@ def _q_to_shards(q: np.ndarray, mesh: Mesh) -> dict:
 
 def _chunks_to_shards(q: dict, n_sblocks: int, BS_M: int, K_eff: int) -> dict:
     """Each shard's q in the int8 kernels' layout (``scan_hits.q_chunks``),
-    built once and read by phase 1 and phase 2 alike; None on a CPU shard,
-    whose plain phases read q itself. Shards that share a q share its
-    chunks."""
+    built once and read by phase 1 and phase 2 alike. Shards that share a q
+    share its chunks."""
     made, out = {}, {}
     for key, t in q.items():
         if id(t) not in made:
-            made[id(t)] = (q_chunks(t, n_sblocks, BS_M, K_eff) if t.device.type == "cuda"
-                           else None)
+            made[id(t)] = q_chunks(t, n_sblocks, BS_M, K_eff)
         out[key] = made[id(t)]
     return out
 
@@ -524,55 +516,27 @@ def _phase1(codes, ok, q, thresh, g: _Geom, qc=None):
                            BS_M=g.BS_M, fold_bias=g.fold, qc=qc)
 
 
-def _phase2(pairs, codes, ok, q, qc, li: int, d: int, strand, g: _Geom, v: int) -> Hits:
-    """One shard's phase 2: re-score its pairs (on a card in one launch of
-    the phase-2 kernel on the chunks ``qc`` phase 1 read, else in batches of
-    ``_pair_chunk``) and decode the hits to global (spacer, position)."""
+def _phase2(pairs, codes, ok, qc, li: int, d: int, strand, g: _Geom, v: int) -> Hits:
+    """One shard's phase 2: re-score its pairs in one call of the phase-2
+    kernel on the chunks ``qc`` phase 1 read, and decode the hits to global
+    (spacer, position)."""
     if len(pairs) == 0:
         return Hits()
-    if qc is not None:
-        n_sb = g.n_sblocks_loc
-        rec = phase2_hits(
-            qc, codes, pairs, mask=ok,
-            half_blocks=g.half_blocks if g.fused else n_sb, n_sb_pad8=_cdiv(n_sb, 8) * 8,
-            SUB=g.SUB, L=g.L, v=v, BS_M=g.BS_M, P2=g.P2, S=g.S_loc, n_sub=g.B // g.P2,
-            code_stride=1,
-        ).cpu().numpy()
-        spacer = li * g.S_loc + rec[:, 0].astype(np.int64)
-        pos = d * g.B + rec[:, 1].astype(np.int64)
-        keep = (spacer < g.S) & (pos < g.n_starts)
-        rev = rec[keep, 2] != 0
-        return Hits(spacer_idx=spacer[keep], pos=pos[keep],
-                    strand=(np.where(rev, STRAND_R, STRAND_F) if strand is None
-                            else np.full(len(rev), strand)).astype(np.int8),
-                    mismatches=rec[keep, 3])
-    t_idx, s_idx = _split_pairs(pairs, _cdiv(g.n_sblocks_loc, 8) * 8, g.SUB)
-    rev = s_idx >= g.half_blocks if g.fused else torch.zeros_like(s_idx, dtype=torch.bool)
-    tiles2 = _tiles_device_impl(codes, n_starts=g.B, P=g.P2, halo=g.halo)[:, 0, :]
-    ok_t = (ok > 0).reshape(g.R, -1, g.P2)
-    q_blocks = q.reshape(-1, g.BS_M, g.K)
-    chunk = _pair_chunk(g.BS_M, g.P2)
-    out = []
-    for c0 in range(0, len(pairs), chunk):
-        tc, sc, rc = t_idx[c0 : c0 + chunk], s_idx[c0 : c0 + chunk], rev[c0 : c0 + chunk]
-        mask = torch.where(rc[:, None], ok_t[-1][tc], ok_t[0][tc])
-        b, row, col, mm = _score_pairs(q_blocks[sc], tiles2[tc], mask, L=g.L, K=g.K,
-                                       P=g.P2, thresh=v)
-        sp_local = (sc[b] - rc[b].long() * g.half_blocks) * g.BS_M + row
-        spacer = li * g.S_loc + sp_local
-        pos = d * g.B + tc[b] * g.P2 + col
-        keep = (sp_local < g.S_loc) & (spacer < g.S) & (pos < g.n_starts)
-        if strand is None:
-            strands = torch.where(rc[b], STRAND_R, STRAND_F)
-        else:
-            strands = torch.full_like(pos, strand)
-        out.append(Hits(
-            spacer_idx=spacer[keep].cpu().numpy().astype(np.int64),
-            pos=pos[keep].cpu().numpy().astype(np.int64),
-            strand=strands[keep].cpu().numpy().astype(np.int8),
-            mismatches=mm[keep].cpu().numpy().astype(np.int32),
-        ))
-    return Hits.concat(out)
+    n_sb = g.n_sblocks_loc
+    rec = phase2_hits(
+        qc, codes, pairs, mask=ok,
+        half_blocks=g.half_blocks if g.fused else n_sb, n_sb_pad8=_cdiv(n_sb, 8) * 8,
+        SUB=g.SUB, L=g.L, v=v, BS_M=g.BS_M, P2=g.P2, S=g.S_loc, n_sub=g.B // g.P2,
+        code_stride=1,
+    ).cpu().numpy()
+    spacer = li * g.S_loc + rec[:, 0].astype(np.int64)
+    pos = d * g.B + rec[:, 1].astype(np.int64)
+    keep = (spacer < g.S) & (pos < g.n_starts)
+    rev = rec[keep, 2] != 0
+    return Hits(spacer_idx=spacer[keep], pos=pos[keep],
+                strand=(np.where(rev, STRAND_R, STRAND_F) if strand is None
+                        else np.full(len(rev), strand)).astype(np.int8),
+                mismatches=rec[keep, 3])
 
 
 def _thresholds(shards, value: float) -> dict:
@@ -594,8 +558,8 @@ def _run(st: ShardTensors, g: _Geom, mesh: Mesh, v: int) -> Hits:
         for (li, d), dev in shards
     }
     out = [
-        _phase2(_compact_pairs(ind), st.codes[li, d], st.ok[ji][li, d], st.q[ji][li, d],
-                qc[ji][li, d], li, d, st.strands[ji], g, v)
+        _phase2(_compact_pairs(ind), st.codes[li, d], st.ok[ji][li, d], qc[ji][li, d], li, d,
+                st.strands[ji], g, v)
         for (ji, li, d), ind in inds.items()
     ]
     return _gather_hits(Hits.concat(out), mesh)
@@ -658,7 +622,7 @@ class _SiteScanRun:
         self.q, self.qc = _Q_SHARD_CACHE.get_or_put(
             (_content_digest(q_pad), "site", K, n_lib, S_loc, mkey), q_to_shards)
         self.mesh, self.positions, self.strands = mesh, positions, strands
-        self.S, self.L, self.K, self.SUB, self.P2 = S, L, K, SUB, P2
+        self.S, self.L, self.SUB, self.P2 = S, L, SUB, P2
         self.BS_M, self.Bs, self.S_loc, self.n_sites = BS_M, Bs, S_loc, n_sites
         self.v = int(max_mismatches)
         shards = _local_shards(mesh)
@@ -671,41 +635,22 @@ class _SiteScanRun:
         }
 
     def _phase2(self, pairs, li: int, d: int) -> Hits:
-        """One shard's phase 2 (on a card in one launch of the phase-2
-        kernel, else in batches of ``_pair_chunk``), decoded to global spacer
-        indices and site columns."""
+        """One shard's phase 2, in one call of the phase-2 kernel, decoded
+        to global spacer indices and site columns."""
         if len(pairs) == 0:
             return Hits()
-        codes, qc = self.codes[li, d], self.qc[li, d]
-        if qc is not None:
-            n_sb = self.S_loc // self.BS_M
-            rec = phase2_hits(
-                qc, codes, pairs, half_blocks=n_sb, n_sb_pad8=_cdiv(n_sb, 8) * 8, SUB=self.SUB,
-                L=self.L, v=self.v, BS_M=self.BS_M, P2=self.P2, S=self.S_loc,
-                n_sub=self.Bs // self.P2, code_stride=self.Bs, n_valid=self.n_sites - d * self.Bs,
-            ).cpu().numpy()
-            spacer = li * self.S_loc + rec[:, 0].astype(np.int64)
-            keep = spacer < self.S
-            site = d * self.Bs + rec[keep, 1]
-            return Hits(spacer_idx=spacer[keep], pos=self.positions[site].astype(np.int64),
-                        strand=self.strands[site].astype(np.int8), mismatches=rec[keep, 3])
-        t_idx, s_idx = _split_pairs(pairs, _cdiv(self.S_loc // self.BS_M, 8) * 8, self.SUB)
-        q_blocks = self.q[li, d].reshape(-1, self.BS_M, self.K)
-        chunk = _pair_chunk(self.BS_M, self.P2)
-        out = []
-        for c0 in range(0, len(pairs), chunk):
-            tc, sc = t_idx[c0 : c0 + chunk], s_idx[c0 : c0 + chunk]
-            b, row, col, mm = extract_matrix(q_blocks, self.codes[li, d],
-                                             self.n_sites - d * self.Bs, tc, sc, L=self.L,
-                                             K=self.K, P2=self.P2, thresh=self.v)
-            spacer = li * self.S_loc + sc[b] * self.BS_M + row
-            keep = spacer < self.S
-            site = (d * self.Bs + tc[b] * self.P2 + col)[keep].cpu().numpy()
-            out.append(Hits(spacer_idx=spacer[keep].cpu().numpy().astype(np.int64),
-                            pos=self.positions[site].astype(np.int64),
-                            strand=self.strands[site].astype(np.int8),
-                            mismatches=mm[keep].cpu().numpy().astype(np.int32)))
-        return Hits.concat(out)
+        n_sb = self.S_loc // self.BS_M
+        rec = phase2_hits(
+            self.qc[li, d], self.codes[li, d], pairs, half_blocks=n_sb,
+            n_sb_pad8=_cdiv(n_sb, 8) * 8, SUB=self.SUB, L=self.L, v=self.v, BS_M=self.BS_M,
+            P2=self.P2, S=self.S_loc, n_sub=self.Bs // self.P2, code_stride=self.Bs,
+            n_valid=self.n_sites - d * self.Bs,
+        ).cpu().numpy()
+        spacer = li * self.S_loc + rec[:, 0].astype(np.int64)
+        keep = spacer < self.S
+        site = d * self.Bs + rec[keep, 1]
+        return Hits(spacer_idx=spacer[keep], pos=self.positions[site].astype(np.int64),
+                    strand=self.strands[site].astype(np.int8), mismatches=rec[keep, 3])
 
     def collect(self) -> Hits:
         # an empty scan is empty on every process (the site table and the

@@ -52,11 +52,12 @@ Phases (any failure is a non-zero exit; nothing is caught):
    and from the joined frame, equal the cuda engine's Hits, every planted
    guide at 0 mismatches; ``scan_hits`` and ``phase2_hits`` launches
    counted from 0 (the ``api`` path of the kernels line).
-3d. the phase-2 kernel (``phase2_hits``) against the plain phase 2 on the
-   same scan job: equal hits as a multiset, at the resident cell's shape
+3d. the phase-2 kernel (``phase2_hits``) against its reference
+   (``phase2_hits_reference``) on the same scan job's device tensors: equal
+   hits as a multiset and in Hits order, at the resident cell's shape
    (6,418 guides, L = 20, site engine, v = 3) and the panel cell's (9,817
-   guides, L = 32, NGNC, dense engine, v = 2), timed beside the plain
-   route, beside its int8 bound, with its ptxas registers and spills.
+   guides, L = 32, NGNC, dense engine, v = 2), timed beside the
+   reference, beside its int8 bound, with its ptxas registers and spills.
 5. the sharded path: request 1 through ``run_targets(backend="sharded")``
    (the site engine; the frame must equal the cuda backend's), then
    ``sharded_scan`` over request 1's library and genome on a 1-shard mesh
@@ -89,7 +90,7 @@ Phases (any failure is a non-zero exit; nothing is caught):
    site's window at 0 mismatches), then the kernel at the design scan's
    full shape (36 tiles x 589,824 rows; its plain version and the
    ``torch._int_mm`` yardstick over 32,768-row chunks), the phase-2 kernel
-   at that shape against the plain phase 2 as in 3d (every candidate on its
+   at that shape against its reference as in 3d (every candidate on its
    site table, v = 1) and, on a 200 kb
    slice, the ``cuda`` backend's design frame (dense, then site-promoted)
    equal to the ``torch`` backend's.
@@ -914,8 +915,8 @@ def phase2_job(genome, L: int, pam: str, v: int, size: int, engine: str, seed: i
 
 
 def phase3d_phase2_kernel(genome) -> dict:
-    """The phase-2 kernel against the plain phase 2 (:func:`phase2_case`)
-    at the resident cell's shape (6,418 guides, the mean library, L = 20 on
+    """The phase-2 kernel against its reference (:func:`phase2_case`) at
+    the resident cell's shape (6,418 guides, the mean library, L = 20 on
     the site engine, v = 3) and the panel cell's (9,817 guides, L = 32,
     NGNC, the dense engine, v = 2); phase 5b adds the design scan's."""
     out = {}
@@ -927,25 +928,42 @@ def phase3d_phase2_kernel(genome) -> dict:
     return out
 
 
+def reference_collect(job):
+    """``job.collect()`` with ``scan_hits.phase2_hits_reference`` in the
+    kernel's place: the reference on the job's own device tensors, through
+    the same sort and decode."""
+    from barcoder_tpu_torch.ops import cuda_scan, scan_hits
+
+    kernel = cuda_scan.phase2_hits
+    cuda_scan.phase2_hits = scan_hits.phase2_hits_reference
+    try:
+        return job.collect()
+    finally:
+        cuda_scan.phase2_hits = kernel
+
+
 def phase2_case(what: str, prep, job, plain_reps: int = 2) -> dict:
-    """One scan job's phase 2 on the kernel against the plain phase 2 (same
-    job, same device inputs: equal hits as a multiset): the kernel's device
-    time (profiler), both routes' times (CUDA events around the route, host
-    syncs included), the int8 bound, the share and the ptxas registers."""
+    """One scan job's phase 2 on the kernel against its reference (same job,
+    same device inputs: equal hits as a multiset and in Hits order): the
+    kernel's device time (profiler), both routes' times (CUDA events around
+    ``collect``, host syncs included), the int8 bound, the share and the
+    ptxas registers."""
     from barcoder_tpu_torch.ops import cuda_scan, nvcc, scan_hits
 
     site = isinstance(job, cuda_scan._SiteScanJob)
     L = prep.L
-    got, want = job._collect_kernel(), job._collect()
+    got, want = job.collect(), reference_collect(job)
     torch.cuda.synchronize()
-    if multiset(got) != multiset(want):
-        raise AssertionError(f"{what}: the kernel's hits differ from the plain "
-                             f"phase 2's ({len(got)} against {len(want)})")
+    if multiset(got) != multiset(want) or any(
+            not np.array_equal(getattr(got, f), getattr(want, f))
+            for f in ("spacer_idx", "pos", "strand", "mismatches")):
+        raise AssertionError(f"{what}: the kernel's hits differ from the reference's "
+                             f"({len(got)} against {len(want)})")
     pair_lists = [job.pairs] if site else list(job.phase1.values())
     n_pairs = sum(len(x) for x in pair_lists)
-    ms = kernel_device_ms(job._collect_kernel, "phase2_hits_kernel")
-    route_ms = cuda_ms(job._collect_kernel)
-    plain_ms = cuda_ms(job._collect, reps=plain_reps)
+    ms = kernel_device_ms(job.collect, "phase2_hits_kernel")
+    route_ms = cuda_ms(job.collect)
+    plain_ms = cuda_ms(lambda: reference_collect(job), reps=plain_reps)
     codes = job.table.codes_lp if site else job.scan_dev
     K_eff = job.qc.shape[1] * 16
     products = n_pairs * prep.bs * prep.P2
@@ -962,7 +980,7 @@ def phase2_case(what: str, prep, job, plain_reps: int = 2) -> dict:
                relaunches=scan_hits.phase2_relaunches,
                shape=dict(L=L, pam=prep.pam, v=int(prep.max_mismatches), spacers=prep.S,
                           engine="site" if site else "dense", BS_M=prep.bs, P2=prep.P2), **b)
-    log(f"{what}: {n_pairs} pairs, {len(got)} hits equal to the plain phase 2's; "
+    log(f"{what}: {n_pairs} pairs, {len(got)} hits equal to the reference's; "
         f"kernel {ms:.4f} ms (device), route {route_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), share {b['bound_ms'] / ms:.4f}, "
         f"issued {b['issued_bound_ms']:.4f} ms; {r['registers']} registers, spills "

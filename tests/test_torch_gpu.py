@@ -28,9 +28,7 @@ from barcoder_tpu_torch.experiments import (
     int8_inputs, int8_tensors, phase1_inputs, phase1_tensors, plant_hits, round_bias,
 )
 from barcoder_tpu_torch.ops import colmax_mma, phase1_variants, scan_hits, scan_max
-from barcoder_tpu_torch.ops.cuda_scan import (
-    _QPrep, _ScanJob, cuda_scan, cuda_scan_contigs, onehot_rows,
-)
+from barcoder_tpu_torch.ops.cuda_scan import cuda_scan, cuda_scan_contigs, onehot_rows
 from barcoder_tpu_torch.ops.oracle import oracle_scan
 from barcoder_tpu_torch.ops.prep import spacer_matrix
 
@@ -304,8 +302,8 @@ def test_cuda_max_kernel_rejects_bad_inputs(cuda):
 @pytest.mark.parametrize("L,pam,v", [(20, "NGG", 2), (32, "NGNC", 1), (20, "", 1)])
 @pytest.mark.parametrize("topology", ["circular", "linear"])
 def test_cuda_engine_matches_oracle(cuda, topology, L, pam, v):
-    """The engine on the card (kernel phase 1, both phase-2 paths) against
-    the numpy oracle, with planted guides as independent truth."""
+    """The engine on the card (both phases on their kernels) against the
+    numpy oracle, with planted guides as independent truth."""
     rng = np.random.default_rng(L + v)
     rec = make_record(n=20_000, topology=topology, seed=L + v)
     guides = [random_seq(L, rng) for _ in range(24)]
@@ -314,11 +312,8 @@ def test_cuda_engine_matches_oracle(cuda, topology, L, pam, v):
                     strand="F" if i % 2 else "R")
     contig = contig_from_record(rec)
     want = oracle_scan(guides, contig, v, pam)
-    spec_overflow = _QPrep(spacer_matrix(guides), v, pam, "downstream", 512, 512, cuda)
-    spec_overflow.spec_B = 1  # the batched per-strand phase 2
     for run in (lambda: cuda_scan(guides, contig, v, pam, P=512, device=cuda),
-                lambda: cuda_scan(guides, contig, v, pam, P=16384, device=cuda),
-                lambda: _ScanJob(spec_overflow, contig).collect()):
+                lambda: cuda_scan(guides, contig, v, pam, P=16384, device=cuda)):
         before = scan_hits.launches
         got = run()
         assert scan_hits.launches > before

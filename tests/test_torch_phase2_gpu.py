@@ -1,17 +1,12 @@
 """Phase 2 of the scan on the card: the kernel (``scan_hits.phase2_hits``,
-``csrc/scan_hits.cu::phase2_hits_kernel``) against the plain torch phase 2,
-its reference, on the same device inputs. Each engine's job holds both
-routes: ``_collect_kernel`` (the kernel over phase 1's pair list) and
-``_collect`` (the one-hot products); their hits must be one multiset of
-(spacer_idx, pos, strand, mismatches). ``gpu``-marked: they skip without a
-card. This file imports no jax:
+``csrc/scan_hits.cu::phase2_hits_kernel``) against its plain torch
+reference (``scan_hits.phase2_hits_reference``) on the same device inputs.
+Each engine's job has one phase-2 route, ``collect``; run once as it is
+and once with the reference in the kernel's place, it must give the same
+Hits, as a multiset of (spacer_idx, pos, strand, mismatches) and in Hits
+order. ``gpu``-marked: they skip without a card. This file imports no jax:
 
     python -m pytest --noconftest -m gpu tests/test_torch_phase2_gpu.py
-
-It also holds :func:`phase2_model`, a plain torch model of the kernel on the
-kernel's own arguments, which the CPU tests (``test_torch_scan.py``,
-``test_torch_site.py``) put in the kernel's place to hold how the engines
-hand their state to it.
 """
 
 from collections import Counter
@@ -24,45 +19,12 @@ from barcoder_tpu.core.genome import contig_from_record
 from barcoder_tpu_torch.ops import cuda_scan as cs
 from barcoder_tpu_torch.ops import scan_hits
 from barcoder_tpu_torch.ops.prep import spacer_matrix
-from barcoder_tpu_torch.ops.scan_hits import _onehot_g
 
 from .genomes import make_record, plant_guide, random_seq
 
 torch.set_num_threads(1)
 
 P = 2048
-
-
-def phase2_model(qc, codes, pairs, *, L, v, BS_M, P2, n_sb_pad8, SUB, S, n_sub, code_stride,
-                 half_blocks, n_valid=None, mask=None, pairs_rev=None, s_rev=0):
-    """What ``scan_hits.phase2_hits`` returns, from the same arguments, in
-    plain torch: Q read back out of the chunk layout, G one-hot from the
-    codes at stride ``code_stride``, every score tested against L - v, the
-    column mask (row min(strand, R - 1)), n_valid and the real rows."""
-    K = qc.shape[1] * 16
-    q = qc.permute(0, 2, 3, 1, 4).reshape(-1, K)  # rows back in order, chunk by chunk
-    q = q.reshape(-1, -(-BS_M // 64) * 64, K)[:, :BS_M].to(torch.float32)
-    pairs_rev = pairs[:0] if pairs_rev is None else pairs_rev
-    flat = torch.cat([pairs, pairs_rev])
-    row_len = n_sb_pad8 * SUB
-    t = flat // row_len * SUB + flat % row_len % SUB
-    s = flat % row_len // SUB
-    s[len(pairs):] += s_rev
-    t, s = t[t < n_sub], s[t < n_sub]
-    cols = t[:, None] * P2 + torch.arange(P2, device=t.device)  # (B, P2)
-    j = torch.arange(L, device=t.device)
-    g = codes.reshape(-1)[j[None, :, None] * code_stride + cols[:, None, :]].long()
-    scores = torch.bmm(q[s], _onehot_g(g, K=K))  # (B, BS_M, P2), exact integers
-    rev = (s >= half_blocks).long()
-    sp0 = (s - rev * half_blocks) * BS_M
-    live = cols < (2 ** 31 - 1 if n_valid is None else n_valid)
-    if mask is not None:
-        live &= mask[rev.clamp(max=mask.shape[0] - 1)[:, None], cols] != 0
-    rows = sp0[:, None] + torch.arange(BS_M, device=t.device) < S
-    b, r, c = torch.nonzero((scores >= L - v) & live[:, None, :] & rows[:, :, None],
-                            as_tuple=True)
-    return torch.stack([sp0[b] + r, cols[b, c], rev[b], L - scores[b, r, c].long()],
-                       1).to(torch.int32)
 
 
 def multiset(h) -> Counter:
@@ -123,30 +85,44 @@ def site_job(library, contig, v, pam, device, *, P=P, sub_width=512):
     return prep, cs._SiteScanJob(prep, cs._site_table_for(prep, contig, "always"))
 
 
+def reference_collect(job):
+    """``job.collect()`` with ``phase2_hits_reference`` in the kernel's
+    place: the reference on the job's own device tensors, through the same
+    sort and decode."""
+    kernel = cs.phase2_hits
+    cs.phase2_hits = scan_hits.phase2_hits_reference
+    try:
+        return job.collect()
+    finally:
+        cs.phase2_hits = kernel
+
+
 def assert_routes_agree(job, at_least=1):
-    kernel, plain = job._collect_kernel(), job._collect()
-    assert multiset(kernel) == multiset(plain)
+    launches = scan_hits.phase2_launches
+    kernel = job.collect()
+    assert scan_hits.phase2_launches > launches
+    reference = reference_collect(job)
+    assert multiset(kernel) == multiset(reference)
     for f in ("spacer_idx", "pos", "strand", "mismatches"):  # both in Hits order
-        assert np.array_equal(getattr(kernel, f), getattr(plain, f)), f
-    assert len(plain) >= at_least
+        assert np.array_equal(getattr(kernel, f), getattr(reference, f)), f
+    assert len(reference) >= at_least
     return kernel
 
 
 # --- the dense engine ----------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("spec_B", [1, 1 << 20])
+@pytest.mark.parametrize("batch", [1, 1 << 20])
 @pytest.mark.parametrize("v", [0, 1, 2, 3])
-def test_dense_fused_L20_matches_plain(cuda, v, spec_B):
+def test_dense_fused_L20_matches_plain(cuda, monkeypatch, v, batch):
     """Strand-fused L = 20 (one pair list, both strands' rows in one chunk
     buffer), a circular contig with a hit across the origin and 600 guides,
     so S is not a multiple of the block height and pad rows exist. The
-    plain side takes the speculative batch (spec_B above the pairs) or the
-    per-strand batches (spec_B 1)."""
+    reference runs in batches of one pair or in one batch."""
     contig, library = planted(11 + v, n=40_000, L=20, pam_site="AGG", n_random=576)
     prep, job = dense_job(library, contig, v, "NGG", cuda)
     assert prep.fused and prep.S % prep.bs and prep.S_pad > prep.S
-    prep.spec_B = spec_B
+    monkeypatch.setattr(scan_hits, "_phase2_batch", lambda BS_M, P2: batch)
     got = assert_routes_agree(job, at_least=12)
     n = contig.length
     assert (0, n - 10, 0, 0) in multiset(got)  # across the origin
@@ -191,8 +167,8 @@ def test_site_engine_matches_plain(cuda, v, L, pam, site):
 @pytest.mark.gpu
 def test_site_columns_past_n_valid_never_hit(cuda):
     """Columns at or past n_sites hold a planted spacer's codes here (the
-    table pads them with N): the kernel leaves them out, as the model and
-    the plain phase 2 do."""
+    table pads them with N): the kernel leaves them out, as the reference
+    does."""
     contig, library = planted(51, n=20_000, L=20, pam_site="TGG", n_random=50)
     prep, job = site_job(library, contig, 0, "NGG", cuda)
     tab = job.table
@@ -207,7 +183,8 @@ def test_site_columns_past_n_valid_never_hit(cuda):
               S=prep.S, n_sub=tab.n_sites_b // prep.P2, code_stride=tab.n_sites_b,
               half_blocks=n_sb)
     qc = prep.chunks("f")
-    want = phase2_model(qc, codes, pair, n_valid=tab.n_sites, **kw).cpu().numpy()
+    want = scan_hits.phase2_hits_reference(qc, codes, pair, n_valid=tab.n_sites,
+                                           **kw).cpu().numpy()
     got = scan_hits.phase2_hits(qc, codes, pair, n_valid=tab.n_sites, **kw).cpu().numpy()
     assert Counter(map(tuple, got.tolist())) == Counter(map(tuple, want.tolist()))
     assert (got[:, 1] < tab.n_sites).all()
@@ -247,10 +224,10 @@ def test_a_full_buffer_relaunches_once(cuda, monkeypatch):
 
     contig, library = planted(71, n=30_000, L=20, pam_site="AGG", n_random=20)
     _prep, job = dense_job(library, contig, 2, "NGG", cuda)
-    want = multiset(job._collect())
+    want = multiset(reference_collect(job))
     monkeypatch.setattr(scan_hits, "phase2_capacity", lambda n_pairs, S: 1)
     before = scan_hits.phase2_relaunches
-    assert multiset(job._collect_kernel()) == want
+    assert multiset(job.collect()) == want
     assert scan_hits.phase2_relaunches == before + 1
     tr = run_targets(BarcodeLibrary([(f"g{i}", s) for i, s in enumerate(library)]),
                      Genome([contig], source="synthetic"), "NGG", 2, backend="cuda")

@@ -23,9 +23,11 @@ from barcoder_tpu.ops import pallas_scan as ps
 from barcoder_tpu.ops.oracle import oracle_scan
 from barcoder_tpu.ops.ref_scan import jax_scan
 from barcoder_tpu_torch.ops import cuda_scan as cs
+from barcoder_tpu_torch.ops import scan_hits
 from barcoder_tpu_torch.ops.oracle import oracle_scan as port_oracle_scan
 from barcoder_tpu_torch.ops.prep import build_scan_array, spacer_matrix
 from barcoder_tpu_torch.ops.ref_scan import torch_scan
+from barcoder_tpu_torch.ops.scan_hits import phase2_hits_reference
 from barcoder_tpu_torch.ops.types import STRAND_F, STRAND_R, Hits
 
 from .genomes import make_record, plant_guide, random_seq
@@ -48,18 +50,11 @@ def assert_same(a: Hits, b: Hits):
         assert x.dtype == y.dtype and np.array_equal(x, y), f
 
 
-def scan_all(spacers, contig, v, pam="", direction="downstream", pallas=True,
-             spec_B=None):
+def scan_all(spacers, contig, v, pam="", direction="downstream", pallas=True):
     """The port's engine and torch scan against the reference engines;
     returns the agreed Hits."""
     want = oracle_scan(spacers, contig, v, pam, direction)
-    if spec_B is None:
-        got = cs.cuda_scan(spacers, contig, v, pam, direction, P=P, device=CPU,
-                           site_mode="never")
-    else:
-        prep = cs._QPrep(spacer_matrix(spacers), v, pam, direction, P, 512, CPU)
-        prep.spec_B = spec_B
-        got = cs._ScanJob(prep, contig).collect()
+    got = cs.cuda_scan(spacers, contig, v, pam, direction, P=P, device=CPU, site_mode="never")
     assert_same(got, want)
     assert_same(torch_scan(spacers, contig, v, pam, direction), want)
     assert_same(port_oracle_scan(spacers, contig, v, pam, direction), want)
@@ -201,19 +196,22 @@ def test_l32_per_strand_additive():
         assert (i, pos, strand, 0) in got
 
 
-def test_spec_overflow_takes_batched_phase2():
-    """More phase-1 pairs than spec_B forces the per-strand batched phase 2;
-    the result is the same table."""
+def test_spec_overflow_takes_batched_phase2(monkeypatch):
+    """Phase 2's reference in batches of one pair gives the table of one
+    batch."""
     rec, guides, sites = planted_case(9)
     contig = contig_from_record(rec)
-    got = scan_all(guides, contig, 2, "NGG", spec_B=1, pallas=False)
-    assert got == scan_all(guides, contig, 2, "NGG")
+    one_batch = scan_all(guides, contig, 2, "NGG")
+    monkeypatch.setattr(scan_hits, "_phase2_batch", lambda BS_M, P2: 1)
+    got = scan_all(guides, contig, 2, "NGG", pallas=False)
+    assert got == one_batch
     for i, pos, strand in sites:
         assert (i, pos, strand, 0) in got
 
 
-def test_dense_repeats_in_one_subtile():
-    """Many hits of one spacer in one subtile, on both phase-2 paths."""
+def test_dense_repeats_in_one_subtile(monkeypatch):
+    """Many hits of one spacer in one subtile, with phase 2's reference in
+    one batch and in batches of one pair."""
     rng = np.random.default_rng(19)
     rec = make_record(n=4000, seed=19)
     g = random_seq(20, rng)
@@ -222,7 +220,8 @@ def test_dense_repeats_in_one_subtile():
         plant_guide(rec, g, p, pam="TGG")
     contig = contig_from_record(rec)
     got = scan_all([g], contig, 0, "NGG")
-    assert got == scan_all([g], contig, 0, "NGG", spec_B=1, pallas=False)
+    monkeypatch.setattr(scan_hits, "_phase2_batch", lambda BS_M, P2: 1)
+    assert got == scan_all([g], contig, 0, "NGG", pallas=False)
     assert sum((0, p, STRAND_F, 0) in got for p in positions) >= 12
 
 
@@ -326,23 +325,18 @@ def test_phase1_on_identical_state(L, pam):
 
 
 @pytest.mark.parametrize("L,pam,site", [(20, "NGG", "AGG"), (32, "NGNC", "AGTC")])
-def test_phase2_kernel_route_on_the_model(monkeypatch, L, pam, site):
-    """The dense engine's kernel route (``_collect_kernel``: phase 1's pair
-    lists, the PAM masks and the chunk buffer, as the card gets them) with
-    the kernel's plain model in its place gives the plain phase 2's Hits,
+def test_phase2_kernel_route_on_the_model(L, pam, site):
+    """The dense engine's one phase-2 route (phase 1's pair lists, the PAM
+    masks and the chunk buffer, as the card gets them) with the kernel's
+    reference on the CPU gives the oracle's Hits in Hits order,
     strand-fused at L = 20 and per strand at L = 32, pad rows included."""
-    from .test_torch_phase2_gpu import phase2_model
-
     rec, guides, sites = planted_case(61 + L, L=L, n_guides=6, pam=site)
     contig = contig_from_record(rec)
     library = guides + [random_seq(L, np.random.default_rng(L)) for _ in range(5)]
-    monkeypatch.setattr(cs, "phase2_hits", phase2_model)
     prep = cs._QPrep(spacer_matrix(library), 2, pam, "downstream", P, 512, CPU)
     job = cs._ScanJob(prep, contig)
-    assert job.qc is None and prep.fused == (L == 20) and prep.S_pad > prep.S
-    job.qc = prep.chunks("fr")
-    got = job._collect_kernel()
-    assert_same(got, job._collect())
+    assert job.qc is prep.chunks("fr") and prep.fused == (L == 20) and prep.S_pad > prep.S
+    got = job.collect()
     assert_same(got, oracle_scan(library, contig, 2, pam))
     for i, pos, strand in sites:
         assert (i, pos, strand, 0) in tuples(got)
@@ -350,18 +344,29 @@ def test_phase2_kernel_route_on_the_model(monkeypatch, L, pam, site):
 
 @pytest.mark.parametrize("site_mode", ["never", "always"])
 def test_cpu_route_takes_the_plain_phase2(monkeypatch, site_mode):
-    """On the CPU both engines' phase 2 is the plain version: the kernel is
-    never called, the hits are counted and nothing relaunches."""
-    from barcoder_tpu_torch.ops import scan_hits
+    """On the CPU both engines' phase 2 goes through ``phase2_hits`` into
+    its reference: no kernel is built or launched, the hits are counted and
+    nothing relaunches."""
+    from barcoder_tpu_torch.ops import nvcc
 
     def no_kernel(*args, **kwargs):
-        raise AssertionError("the CPU route reached the phase-2 kernel")
+        raise AssertionError("the CPU route reached a kernel")
 
-    monkeypatch.setattr(cs, "phase2_hits", no_kernel)
+    calls = []
+
+    def reference(*args, **kwargs):
+        calls.append(args[0].device)
+        return phase2_hits_reference(*args, **kwargs)
+
+    monkeypatch.setattr(nvcc, "launcher", no_kernel)
+    monkeypatch.setattr(scan_hits, "phase2_hits_reference", reference)
     rec, guides, sites = planted_case(67)
     contig = contig_from_record(rec)
-    hits0, relaunches0 = cs.phase2_hit_count, scan_hits.phase2_relaunches
+    hits0, launches0 = cs.phase2_hit_count, scan_hits.phase2_launches
+    relaunches0 = scan_hits.phase2_relaunches
     got = cs.cuda_scan(guides, contig, 2, "NGG", P=P, device=CPU, site_mode=site_mode)
     assert_same(got, oracle_scan(guides, contig, 2, "NGG"))
+    assert calls == [CPU]
     assert cs.phase2_hit_count - hits0 == len(got) >= len(sites)
+    assert scan_hits.phase2_launches == launches0
     assert scan_hits.phase2_relaunches == relaunches0

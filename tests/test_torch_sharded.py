@@ -178,8 +178,8 @@ def test_poly_a_every_position_hits(jax_mesh8):
 
 
 def test_chunked_phase2_agrees(monkeypatch):
-    """Phase 2 in many small batches gives the same Hits."""
-    monkeypatch.setattr(ss, "_pair_chunk", lambda BS_M, P2: 2)
+    """Phase 2's reference in many small batches gives the same Hits."""
+    monkeypatch.setattr(scan_hits, "_phase2_batch", lambda BS_M, P2: 2)
     rng = np.random.default_rng(12)
     rec = make_record(n=9000, topology="circular", seed=12)
     spacers = [random_seq(20, rng) for _ in range(6)]

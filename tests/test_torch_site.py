@@ -120,9 +120,10 @@ def test_L32_takes_one_launch_path():
 
 
 def test_batched_phase2_matches_one_batch(monkeypatch):
-    """Phase 2 in batches of one pair gives the Hits of one batch, which are
-    those of both JAX phase-2 paths (the speculative one-fetch path, and the
-    batched one that design-scale libraries take)."""
+    """Phase 2's reference in batches of one pair gives the Hits of one
+    batch, which are those of both JAX phase-2 paths (the speculative
+    one-fetch path, and the batched one that design-scale libraries
+    take)."""
     rng = np.random.default_rng(59)
     rec = make_record(n=3500, topology="circular", seed=59)
     guides = [random_seq(20, rng) for _ in range(8)]
@@ -133,12 +134,7 @@ def test_batched_phase2_matches_one_batch(monkeypatch):
     one_batch = tuples(cs.cuda_scan(guides, contig, 2, device="cpu", **kw))
     jax_spec = tuples(ps.pallas_scan(guides, contig, 2, interpret=True, **kw))
 
-    def small_batches(*args):
-        prep = cs._QPrep(*args)
-        prep.extract_batch = 1
-        return prep
-
-    monkeypatch.setattr(cs, "_get_prep", small_batches)
+    monkeypatch.setattr(scan_hits, "_phase2_batch", lambda BS_M, P2: 1)
     batched = tuples(cs.cuda_scan(guides, contig, 2, device="cpu", **kw))
     monkeypatch.setattr(ps, "_SITE_MODE_MIN_SPACERS", 1)  # the JAX batched path
     jax_batched = tuples(ps.pallas_scan(guides, contig, 2, interpret=True, **kw))
@@ -316,12 +312,10 @@ def test_site_phase1_counts_bit_equal_on_jax_state(L, v):
 
 
 @pytest.mark.parametrize("v", [0, 1, 2, 3])
-def test_site_phase2_kernel_route_on_the_model(monkeypatch, v):
-    """The site engine's kernel route (``_collect_kernel``: the pair list,
-    the site codes at stride n_sites_b, n_sites) with the kernel's plain
-    model in its place gives the plain phase 2's Hits."""
-    from .test_torch_phase2_gpu import phase2_model
-
+def test_site_phase2_kernel_route_on_the_model(v):
+    """The site engine's one phase-2 route (the pair list, the site codes
+    at stride n_sites_b, n_sites, as the card gets them) with the kernel's
+    reference on the CPU gives the oracle's Hits in Hits order."""
     rng = np.random.default_rng(71 + v)
     rec = make_record(n=5000, topology="circular", seed=71 + v)
     guides = [random_seq(20, rng) for _ in range(140)]
@@ -329,17 +323,13 @@ def test_site_phase2_kernel_route_on_the_model(monkeypatch, v):
         plant_guide(rec, guides[i], 150 + 31 * i, pam="TGG", strand="F" if i % 40 else "R")
     plant_guide(rec, guides[1], 4990, pam="AGG")  # across the origin
     contig = contig_from_record(rec)
-    monkeypatch.setattr(cs, "phase2_hits", phase2_model)
     prep = cs._QPrep(cs.spacer_matrix(guides), v, "NGG", "downstream", 1024, 256, "cpu")
     job = cs._SiteScanJob(prep, cs._site_table_for(prep, contig, "always"))
-    assert job.qc is None and prep.S_pad > prep.S
-    job.qc = prep.chunks("f")
-    kernel, plain = job._collect_kernel(), job._collect()
-    for f in ("spacer_idx", "pos", "strand", "mismatches"):  # the same order too
-        assert np.array_equal(getattr(kernel, f), getattr(plain, f)), f
-    got = tuples(kernel)
-    assert got == tuples(oracle_scan(guides, contig, v, pam="NGG"))
-    assert (1, 4990, 0, 0) in got
+    assert job.qc is prep.chunks("f") and prep.S_pad > prep.S
+    got, want = job.collect(), oracle_scan(guides, contig, v, pam="NGG")
+    for f in ("spacer_idx", "pos", "strand", "mismatches"):  # in Hits order
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert (1, 4990, 0, 0) in tuples(got)
 
 
 @pytest.mark.parametrize("site_mode", ["never", "always"])
