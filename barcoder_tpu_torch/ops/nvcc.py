@@ -21,7 +21,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-KERNELS = ("scan_hits", "scan_max", "colmax_mma", "phase1_mma")
+KERNELS = ("scan_hits", "scan_max", "colmax_mma", "phase1_mma", "count_match")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # the kernels build into the source checkout's build/ (as
 # barcoder_tpu/native_bridge.py builds its library), so the package runs from

@@ -4,17 +4,18 @@
 The JAX engine shards each dispatched batch's read axis over a 1-D mesh,
 exact-matches every shard's rows against the replicated barcode table on
 its device (``jnp.dot`` outside Pallas), and merges the per-device count
-vectors on the device with ``psum``. Here each batch's keys are split into
-one contiguous slice per shard this process owns, each slice is matched on
-its shard's device by ``CudaCounter``'s shard loop (``_set_shards``,
-``match_keys``: the library's sorted keys, ``torch.searchsorted``,
-``index_add_`` into the shard's own int64 accumulator), and the
-accumulators are summed on the host at each drain: a ``CudaCounter`` is
-the one-shard case. No kernel: the JAX engine had none here either.
+vectors on the device with ``psum``. Here each batch's raw rows are split
+into one contiguous slice per shard this process owns, each slice is
+tested on its shard's device by ``CudaCounter``'s shard loop
+(``_set_shards``; one ``ops.count_match`` kernel launch a slice: the whole
+per-read test and the match into the shard's own int64 accumulator), and
+the accumulators are summed on the host at each drain: a ``CudaCounter``
+is the one-shard case.
 
 Chunk semantics (flank windows, paired revcomp consistency, N filter, the
 truncated-window slow path, undocumented ``seq*`` counting) are
-``CudaCounter``'s, so ``VectorCounter``'s: only the matching is sharded.
+``CudaCounter``'s, so ``VectorCounter``'s: only where the test runs is
+sharded.
 
 Across processes (a read mesh that spans them, ``parallel.multihost``),
 each process counts only its own reads, and the processes meet once, at
@@ -47,7 +48,7 @@ from collections import Counter
 
 import numpy as np
 
-from ..pipeline.heuristic_count import CountConfig, CudaCounter, VectorCounter
+from ..pipeline.heuristic_count import CountConfig, CudaCounter, VectorCounter, _rows
 from . import multihost
 from .mesh import Mesh, _device_array, local_devices, span_processes, spanning
 
@@ -62,11 +63,6 @@ def make_read_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     if n_devices is not None:
         devices, procs = devices[:n_devices], procs[:n_devices]
     return Mesh(_device_array(devices, (len(devices),)), (READS_AXIS,), spanning(procs))
-
-
-def _rows(m1, m2) -> int:
-    m = m1 if m1 is not None else m2
-    return 0 if m is None else m.shape[0]
 
 
 class ShardedCounter(CudaCounter):
@@ -112,9 +108,9 @@ class ShardedCounter(CudaCounter):
             self.total_reads += n_records
             return
         self.owned_reads += n_records
-        # VectorCounter's windows and checks on this process's own rows;
-        # CudaCounter._tally buffers and dispatches them
-        VectorCounter.process_matrices(self, m1, m2)
+        # this process's own rows, buffered and dispatched by CudaCounter
+        # (not the process window of process_matrices above)
+        CudaCounter.process_matrices(self, m1, m2)
 
     def flush_owned(self) -> None:
         """Dispatch the rows buffered so far (the JAX engine's lockstep

@@ -13,7 +13,8 @@ runs on a fork pool of Python workers (heuristicount.py:720-722) — is
 replaced by a vectorized engine: reads become a fixed-width byte matrix, the
 window/flank checks become column compares, barcode cores are 2-bit packed
 into uint64 keys and matched against the sorted library via searchsorted
-(device or numpy), counts merged with bincount/segment-sum. A direct
+(numpy), counts merged with bincount/segment-sum; on the card one kernel
+(``ops/count_match``) does each read's whole test over the raw read matrix. A direct
 per-read port is kept as the exactness oracle (count_chunk_reference).
 """
 
@@ -844,65 +845,69 @@ def _pack_cores_u32(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return packed, has_n
 
 
-def match_keys(sk, rows, acc, k, e):
-    """The exact-match test on one device: each key of ``k`` placed in the
-    sorted table ``sk`` (``torch.searchsorted``), the hit mask (``e`` marks
-    the eligible reads), and the hits tallied into ``acc`` at each key's
-    ``rows`` entry (``index_add_``). Returns the hit mask."""
-    idx = torch.searchsorted(sk, k).clamp_(max=len(sk) - 1)
-    hit = (sk[idx] == k) & e
-    acc.index_add_(0, rows[idx], hit.to(torch.int64))
-    return hit
+def _rows(m1, m2) -> int:
+    m = m1 if m1 is not None else m2
+    return 0 if m is None else m.shape[0]
 
 
 class CudaCounter(VectorCounter):
-    """Card-resident matching, the port's ``DeviceCounter``. The JAX engine
-    matched each read's core on the TPU as a one-hot product against every
-    barcode (``jnp.dot``, outside any Pallas kernel: O(B) a read, an 8,192 x
-    B score matrix a slice); here the exact-match test is a binary search of
-    each read's 2-bit key (the ``keys`` that ``process_matrices`` already
-    packs for ``_tally``) in the library's keys sorted on the card
-    (``torch.searchsorted``, O(log B) a read), and the documented counts
-    tally into an int64 accumulator on the card (``index_add_``) that
-    crosses back once per drain.
+    """Card-resident counting, the port's ``DeviceCounter``. The JAX engine
+    tested each read on the host (VectorCounter's windows, flank compares
+    and key packing) and matched its core on the TPU as a one-hot product
+    against every barcode (``jnp.dot``, outside any Pallas kernel). Here a
+    batch of raw reads crosses to the card as the reader yields them, and
+    one hand-written kernel (``ops.count_match``) does each read's whole
+    test there: the truncation and N filters, the flank windows, the 2-bit
+    key, a binary search in the library's keys sorted on the card, and the
+    tally into an int64 accumulator on the card that crosses back once per
+    drain. Only two lists of row indices come back: the eligible reads that
+    did not match and the reads whose window the read's end truncates.
 
-    Semantics are identical to VectorCounter / count_chunk_reference: the
-    host keeps the N filter, the flank checks, the truncated-window slow
-    path and the undocumented tally. A batch ships its keys (8 bytes a
-    read) and eligibility (1 byte); only the matched mask (1 byte a read)
-    comes back.
+    Semantics are identical to VectorCounter / count_chunk_reference. The
+    host builds the undocumented ``seq*`` strings from its own copy of the
+    unmatched rows, runs the truncated rows through the per-read oracle
+    (``_slow_path_rows``), and writes ``doc_counts`` and ``undoc`` only on
+    the caller's thread, in drain(). Only a pure-ACGT core is matched, so a
+    32-nt all-T core (key ~0, the sentinel of a non-ACGT core) counts as
+    the all-T barcode, as the per-read oracle counts it.
 
     The lifecycle is DeviceCounter's, name for name: reader chunks buffer
-    to ``_DISPATCH_ROWS`` rows; one worker thread stages each batch in
-    pinned host memory and enqueues its copies and matching without
-    waiting; at most ``_MAX_PENDING`` batches stay in flight, each holding
-    its host buffers until the event after its copy back has completed; and
-    drain()/results() retire the rest.
+    to ``_DISPATCH_ROWS`` rows; one worker thread copies each batch once
+    into a reused pinned staging buffer and enqueues its copies and kernel
+    without waiting; at most ``_MAX_PENDING`` batches stay in flight, each
+    holding its staging buffer until the event after its copy back has
+    completed; and drain()/results() retire the rest. The reader's matrices
+    are read when their batch is staged, after ``process_matrices`` has
+    returned: a caller hands over matrices it does not write again, as the
+    reader does.
 
-    The matching runs over a list of shards (``_set_shards``): the
-    counter's device alone here, this process's shards of a read mesh in
-    ``parallel.sharded_count.ShardedCounter``. Each batch's keys split into
-    one contiguous slice per shard, each matched on its shard's device into
+    The test runs over a list of shards (``_set_shards``): the counter's
+    device alone here, this process's shards of a read mesh in
+    ``parallel.sharded_count.ShardedCounter``. Each batch's rows split into
+    one contiguous slice per shard, each tested on its shard's device into
     the shard's own accumulator; a fetch sums them on the host.
 
     ``device=None`` is the card and raises without CUDA, unless the caller
     asked for the CPU (``parallel.mesh.set_platform("cpu")``, the CLI's
-    ``BARCODER_TPU_PLATFORM=cpu``); ``device="cpu"`` runs the same torch
-    code on the CPU, only when a caller asks for it."""
+    ``BARCODER_TPU_PLATFORM=cpu``); ``device="cpu"`` runs the kernel's
+    plain torch twin, only when a caller asks for it."""
 
-    _DISPATCH_ROWS = 1 << 18  # reader chunks buffered per dispatched batch
+    _DISPATCH_ROWS = 1 << 18  # reader rows buffered per dispatched batch
     # the int64 accumulator cannot wrap; the spill into the host array every
     # this many rows is the reference's int32 guard, kept as its lifecycle
     _ACC_SPILL_ROWS = 1 << 30
     _MAX_PENDING = 8
 
-    # batch slices matched on a card (one per shard and batch), and their
-    # card time (CUDA events): the matching alone, and with its copies.
-    # Class-wide, like a kernel's launch count; a caller zeroes them before
-    # the run it reads.
+    # batch slices tested on a card (one kernel launch per shard and batch),
+    # their card time (CUDA events): the kernel alone, and with its copies;
+    # and the rows whose whole test ran in the kernel and those it left to
+    # the host's per-read path (truncated windows). Class-wide, like a
+    # kernel's launch count; a caller zeroes them before the run it reads.
     dispatches = 0
     match_ms = 0.0
     device_ms = 0.0
+    card_rows = 0
+    host_rows = 0
     _stats_lock = threading.Lock()
 
     def __init__(self, cfg: CountConfig, device=None):
@@ -938,58 +943,109 @@ class CudaCounter(VectorCounter):
         )
         self._pending = []
         self._acc_rows = 0  # rows dispatched since the last fetch
-        # counts fetched by a spill, and unmatched cores tallied, on the
-        # worker thread; merged into doc_counts and undoc by drain() on the
-        # caller's thread, which alone writes those two (its slow path runs
-        # while the worker dispatches)
+        # counts fetched by a spill, unmatched cores tallied and truncated
+        # rows kept, on the worker thread; merged into doc_counts and undoc
+        # by drain() on the caller's thread, which alone writes those two
         self._spilled = np.zeros(self.B, dtype=np.int64)
         self._spilled_undoc: Counter = Counter()
-        self._buf: list = []  # [(keys, cores, eligible)] awaiting one dispatch
+        self._spilled_slow: list = []  # [(m1 rows, m2 rows)] for _slow_path_rows
+        self._buf: list = []  # [(m1, m2)] reader chunks awaiting one dispatch
         self._buf_rows = 0
+        self._staging: list = []  # pinned staging buffers of retired batches
         self._worker = None  # dispatch thread (started at first flush)
         self._worker_err = None
         self._set_shards([device])
 
     def _set_shards(self, devices) -> None:
-        """Match on ``devices``, one shard each (a device may repeat): the
-        sorted table copied once to each device, one int64 accumulator per
+        """Test on ``devices``, one shard each (a device may repeat): the
+        match table copied once to each device, one int64 accumulator per
         shard, created at its first batch."""
+        from ..ops import count_match
+
         devices = [torch.device("cuda", torch.cuda.current_device())
                    if d.type == "cuda" and d.index is None else d
                    for d in map(torch.device, devices)]
+        cfg = self.cfg
+        table = count_match.match_table(
+            self._keys_dev, self._rows_dev, bc_len=self.bc_len, L1=cfg.L_fwd, R1=cfg.R_fwd,
+            L2=cfg.L_rev, R2=cfg.R_rev, start1=cfg.L_fwd_start, start2=cfg.L_rev_start)
         tables = {}
         for dev in devices:
             if str(dev) in tables:
                 continue
-            sk, rows = self._keys_dev.to(dev), self._rows_dev.to(dev)
-            tables[str(dev)] = (sk, rows)
-            if dev.type == "cuda" and self.B:
-                # a process's first launch of each matching op on a card
-                # loads its code: take that here, not inside the first
-                # batch's timed window (no read is eligible, so nothing is
-                # counted)
-                with torch.cuda.device(dev):
-                    match_keys(sk, rows, torch.zeros(self.B, dtype=torch.int64, device=dev),
-                               sk[:1], torch.zeros(1, dtype=torch.bool, device=dev))
+            tables[str(dev)] = table.to(dev)
+            if dev.type == "cuda":
+                count_match.load(tables[str(dev)])
         self._shard_devices = devices
         self._tables = [tables[str(d)] for d in devices]
         self._accs: list = [None] * len(devices)
 
-    def _device_match_async(self, keys: np.ndarray, eligible: np.ndarray):
-        """Enqueue one batch's matching without waiting, one contiguous
-        slice of it on each shard: ``keys`` are the reads' 2-bit keys,
-        ``eligible`` marks the reads whose cores are pure ACGT and pass the
-        host's checks. Returns (n, in-flight batch): the matched mask
-        (host), the batch's CUDA event quadruples, one per shard on a card,
-        and its staged host buffers, which must outlive the copies."""
-        n = len(keys)
-        k_host = torch.from_numpy(np.ascontiguousarray(keys).view(np.int64))
-        e_host = torch.from_numpy(np.ascontiguousarray(eligible, dtype=bool))
-        cuda = any(d.type == "cuda" for d in self._shard_devices)
-        if cuda:
-            k_host, e_host = k_host.pin_memory(), e_host.pin_memory()
-        matched = torch.empty(n, dtype=torch.bool, pin_memory=cuda)
+    def process_matrices(self, m1, m2) -> None:
+        """VectorCounter.process_matrices' contract, with every read's test
+        on the counter's shards: the chunk's rows buffer until
+        ``_DISPATCH_ROWS`` have come, then go to the dispatch worker as they
+        are (see the class docstring)."""
+        n = _rows(m1, m2)
+        if not self.B:
+            # nothing can match, and VectorCounter tallies no undocumented
+            # core for an empty library: only its truncated-window path counts
+            VectorCounter.process_matrices(self, m1, m2)
+            return
+        self.total_reads += n
+        if n == 0:
+            return
+        self._buf.append((m1, m2))
+        self._buf_rows += n
+        if self._buf_rows >= self._DISPATCH_ROWS:
+            self._flush_buf()
+
+    def _stage(self, chunks):
+        """One batch's rows in one staging buffer (pinned when a shard is a
+        card, reused after a batch retires): each mate's chunks stacked into
+        an (n, width) matrix, a narrower chunk zero-padded to the widest,
+        and room for the kernel's row lists and counts behind them. Returns
+        (m1, m2, idx, counts, buffer) as host tensors."""
+        n = sum(_rows(a, b) for a, b in chunks)
+        widths = [max((c[k].shape[1] for c in chunks), default=0)
+                  if chunks[0][k] is not None else 0 for k in (0, 1)]
+        sizes = [n * w for w in widths] + [4 * n, 4 * 2 * len(self._shard_devices)]
+        offsets = [0]
+        for size in sizes:
+            offsets.append(offsets[-1] + -(-size // 16) * 16)
+        buf = next((b for b in self._staging if b.numel() >= offsets[-1]), None)
+        if buf is None:
+            buf = torch.empty(int(offsets[-1]), dtype=torch.uint8,
+                              pin_memory=any(d.type == "cuda" for d in self._shard_devices))
+        else:
+            self._staging.remove(buf)
+        mats = []
+        for k, w in enumerate(widths):
+            if chunks[0][k] is None:
+                mats.append(None)
+                continue
+            mat = buf[offsets[k] : offsets[k] + n * w].view(n, w)
+            row = 0
+            for c in chunks:
+                part = torch.from_numpy(c[k])
+                mat[row : row + len(part), : part.shape[1]].copy_(part)
+                mat[row : row + len(part), part.shape[1] :].zero_()
+                row += len(part)
+            mats.append(mat)
+        idx = buf[offsets[2] : offsets[2] + 4 * n].view(torch.int32)
+        counts = buf[offsets[3] : offsets[3] + sizes[3]].view(torch.int32).view(-1, 2)
+        return mats[0], mats[1], idx, counts, buf
+
+    def _device_match_async(self, m1, m2, idx_host, counts_host):
+        """Enqueue one staged batch's test without waiting, one contiguous
+        slice of its rows on each shard; each shard's row lists and counts
+        come back into ``idx_host`` (the slice's rows) and ``counts_host``
+        (the shard's row). Returns (n, the batch's CUDA event quadruples,
+        one per shard on a card)."""
+        from ..ops import count_match
+
+        n = _rows(m1, m2)
         cuts = np.linspace(0, n, len(self._shard_devices) + 1).astype(np.int64)
+        counts_host.zero_()
         events = []
         for i, dev in enumerate(self._shard_devices):
             lo, hi = int(cuts[i]), int(cuts[i + 1])
@@ -1000,16 +1056,17 @@ class CudaCounter(VectorCounter):
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)] if on_card else None
                 if on_card:
                     ev[0].record()
-                k = k_host[lo:hi].to(dev, non_blocking=True)
-                e = e_host[lo:hi].to(dev, non_blocking=True)
+                a = None if m1 is None else m1[lo:hi].to(dev, non_blocking=True)
+                b = None if m2 is None else m2[lo:hi].to(dev, non_blocking=True)
                 if on_card:
                     ev[1].record()
                 if self._accs[i] is None:
                     self._accs[i] = torch.zeros(self.B, dtype=torch.int64, device=dev)
-                hit = match_keys(*self._tables[i], self._accs[i], k, e)
+                idx, counts = count_match.count_match(self._tables[i], a, b, self._accs[i])
                 if on_card:
                     ev[2].record()
-                matched[lo:hi].copy_(hit, non_blocking=on_card)
+                idx_host[lo:hi].copy_(idx, non_blocking=on_card)
+                counts_host[i].copy_(counts, non_blocking=on_card)
                 if on_card:
                     ev[3].record()
                     events.append(ev)
@@ -1018,7 +1075,7 @@ class CudaCounter(VectorCounter):
         self._acc_rows += n
         if self._acc_rows >= self._ACC_SPILL_ROWS:
             self._fetch_acc()
-        return n, (matched, events, (k_host, e_host))
+        return n, events
 
     def _fetch_acc(self) -> None:
         """Add every shard's accumulator into the host's spill and restart
@@ -1029,31 +1086,13 @@ class CudaCounter(VectorCounter):
                 self._accs[i] = None
         self._acc_rows = 0
 
-    def _tally(self, keys, cores, eligible) -> None:
-        """Same contract as VectorCounter._tally, with the key matching on
-        the counter's device. Reader chunks buffer to _DISPATCH_ROWS rows
-        per dispatched batch; every fetch happens at drain()/results()
-        time, so copies, matching and host reading of successive batches
-        overlap."""
-        if len(self.bc_list) == 0:
-            return
-        self._buf.append((keys, cores, np.asarray(eligible, bool)))
-        self._buf_rows += len(cores)
-        if self._buf_rows >= self._DISPATCH_ROWS:
-            self._flush_buf()
-
     def _flush_buf(self) -> None:
-        """Hand the buffered rows to the dispatch worker thread, which
+        """Hand the buffered chunks to the dispatch worker thread, which
         stages and enqueues them while the reader thread parses the next
         chunks. One FIFO queue and one worker keep the batches in order."""
         if not self._buf:
             return
-        if len(self._buf) == 1:
-            keys, cores, eligible = self._buf[0]
-        else:
-            keys = np.concatenate([k for k, _, _ in self._buf])
-            cores = np.concatenate([c for _, c, _ in self._buf])
-            eligible = np.concatenate([e for _, _, e in self._buf])
+        chunks = self._buf
         self._buf = []
         self._buf_rows = 0
         self._ensure_worker()
@@ -1063,7 +1102,7 @@ class CudaCounter(VectorCounter):
             err, self._worker_err = self._worker_err, None
             self._shutdown_worker()
             raise err
-        self._work_q.put((keys, cores, eligible))
+        self._work_q.put(chunks)
 
     def _ensure_worker(self) -> None:
         if self._worker is not None:
@@ -1083,19 +1122,12 @@ class CudaCounter(VectorCounter):
                     if item is None:
                         return
                     if self._worker_err is None:
-                        keys, cores, eligible = item
-                        # a core with a non-ACGT byte packs to the sentinel
-                        # ~0, which is also the key of a 32-nt all-T
-                        # barcode: such reads are left out of the matching
-                        # (the host tallies them as undocumented), and a
-                        # sentinel key on the card is then all-T, as the
-                        # per-read oracle counts it
-                        ok = eligible & (_CODE_LUT[cores] < 4).all(axis=1)
-                        fut = self._device_match_async(keys, ok)
-                        self._pending.append((fut, cores, eligible))
+                        m1, m2, idx, counts, buf = self._stage(item)
+                        fut = self._device_match_async(m1, m2, idx, counts)
+                        self._pending.append((fut, (m1, m2, idx, counts, buf)))
                         # bounded pipelining: each entry retains its
-                        # batch's cores and pinned buffers; retiring the
-                        # oldest keeps memory flat while batches overlap
+                        # batch's staging buffer; retiring the oldest keeps
+                        # memory flat while batches overlap
                         while len(self._pending) > self._MAX_PENDING:
                             self._drain_entry(self._pending.pop(0))
                 except BaseException as e:  # surfaced at flush or drain
@@ -1145,6 +1177,8 @@ class CudaCounter(VectorCounter):
         self._pending = []
         self._buf = []
         self._buf_rows = 0
+        self._spilled_slow = []
+        self._staging = []
 
     def _quiesce(self) -> None:
         """Wait until the dispatch worker has consumed every submitted
@@ -1161,18 +1195,54 @@ class CudaCounter(VectorCounter):
             raise err
 
     def _drain_entry(self, entry) -> None:
-        (n, (matched, events, _staged)), cores, eligible = entry
+        """Retire one batch once its copies back have completed: its
+        unmatched rows' cores tallied into ``_spilled_undoc``, its truncated
+        rows copied out for drain()'s per-read path, its staging buffer
+        freed for the next batch."""
+        from ..ops.count_match import split_rows
+
+        (n, events), (m1, m2, idx, counts, buf) = entry
         for ev in events:
             ev[3].synchronize()
             with self._stats_lock:
                 CudaCounter.match_ms += ev[1].elapsed_time(ev[2])
                 CudaCounter.device_ms += ev[0].elapsed_time(ev[3])
-        un = eligible & ~matched.numpy()[:n]
-        if un.any():
-            uniq, counts = np.unique(cores[un], axis=0, return_counts=True)
-            for row, cnt in zip(uniq, counts):
+        cuts = np.linspace(0, n, len(self._shard_devices) + 1).astype(np.int64)
+        idx, counts = idx.numpy(), counts.numpy()
+        unmatched, truncated = [], []
+        for i, dev in enumerate(self._shard_devices):
+            lo, hi = int(cuts[i]), int(cuts[i + 1])
+            un, tr = split_rows(idx[lo:hi], counts[i])
+            unmatched.append(un + lo)
+            truncated.append(tr + lo)
+            if dev.type == "cuda":
+                with self._stats_lock:
+                    CudaCounter.card_rows += hi - lo - len(tr)
+                    CudaCounter.host_rows += len(tr)
+        un, tr = np.concatenate(unmatched), np.concatenate(truncated)
+        m1 = None if m1 is None else m1.numpy()
+        m2 = None if m2 is None else m2.numpy()
+        if len(un):
+            cfg = self.cfg
+            if m1 is not None:
+                _, _, cores = self._process_side(m1[un], cfg.L_fwd_start, cfg.L_fwd, cfg.R_fwd,
+                                                 False)
+            else:
+                # reference reports rev_comp(core) (heuristicount.py:532-533)
+                _, _, core = self._process_side(m2[un], cfg.L_rev_start, cfg.L_rev, cfg.R_rev,
+                                                True)
+                codes = _CODE_LUT[core][:, ::-1]
+                codes = np.where(codes < 4, 3 - codes, codes)
+                cores = np.frombuffer(b"ACGTN", dtype=np.uint8)[np.clip(codes, 0, 4)]
+            uniq, cnts = np.unique(cores, axis=0, return_counts=True)
+            for row, cnt in zip(uniq, cnts):
                 seq = row.tobytes().decode("ascii", errors="replace").rstrip("\x00")
                 self._spilled_undoc[seq + "*"] += int(cnt)
+        if len(tr):
+            self._spilled_slow.append((None if m1 is None else m1[tr],
+                                       None if m2 is None else m2[tr]))
+        self._staging.append(buf)
+        del self._staging[: -self._MAX_PENDING - 1]
 
     def drain(self) -> None:
         self._flush_buf()
@@ -1187,6 +1257,9 @@ class CudaCounter(VectorCounter):
         self._spilled[:] = 0
         self.undoc.update(self._spilled_undoc)
         self._spilled_undoc.clear()
+        for a, b in self._spilled_slow:
+            self._slow_path_rows(a, b, np.arange(_rows(a, b)))
+        self._spilled_slow = []
 
     def results(self):
         self.drain()
@@ -1199,12 +1272,13 @@ class CudaCounter(VectorCounter):
         self._acc_rows = 0
         self._spilled[:] = 0
         self._spilled_undoc.clear()
+        self._spilled_slow = []
         self._buf = []
         self._buf_rows = 0
         self._pending = []
 
     def _try_native_single_end(self, mat, start, Lf, Rf) -> bool:
-        return False  # keep the whole hot loop on the device path
+        return False  # an empty library's chunks take the numpy path
 
 
 def discover_config(barcodes, file1, file2, is_paired, log=None):

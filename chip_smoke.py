@@ -116,10 +116,13 @@ Phases (any failure is a non-zero exit; nothing is caught):
    (lognormal counts, 3% of reads outside the library, 0.5% with an N);
    ``run_count`` with the host engine (``vector``) and the card's
    (``device``, ``CudaCounter``) on each layout: counts equal to the
-   generator's truth and to each other, the card's matching dispatched;
-   each engine's reads/s, the card time of its matching (CUDA events in
-   the dispatch worker) and its dispatches printed; the matching alone
-   timed on one batch already on the card, beside its bound; then ``python -m
+   generator's truth and to each other; on the card every batch tested by
+   one ``count_match`` launch, every read's whole test in the kernel
+   (``CudaCounter.card_rows``, ``host_rows`` 0); each engine's reads/s, the
+   card time of the kernel and of its copies (CUDA events in the dispatch
+   worker), its dispatches and launches printed; ``count_match`` alone at
+   the cell's batch shape (262,144 reads) beside its bound and its plain
+   twin on the same device tensors; then ``python -m
    barcoder_tpu_torch count lib.fasta r1.fastq --engine device`` in a
    subprocess must print the same counts.
 8. the multi-host path: ``ShardedCounter`` on a read mesh of two shards of
@@ -131,7 +134,8 @@ Phases (any failure is a non-zero exit; nothing is caught):
    process-spanning mesh (site and dense), a 2-D mesh whose library rows
    are the two processes and ``sharded_scan_many`` over 8 libraries, every
    Hits equal on both processes to phase 3's (and the solo scans), every
-   planted guide found, ``scan_hits`` launched in each worker; then
+   planted guide found, ``scan_hits``, ``phase2_hits`` and ``count_match``
+   launched in each worker; then
    ``run_count`` (``auto``, which must take ``sharded``) on phase 7's reads
    and pairs, counts equal to the truth on both, the owned reads disjoint
    and covering the reads, reads/s per process; then the ``targets``
@@ -1765,6 +1769,7 @@ def phase7_counting(d: str) -> tuple[dict, dict]:
     and the card must have matched (``dispatches``). Then the ``count`` CLI
     with ``--engine device`` in a subprocess must print the in-process
     counts. Returns (the phase's report, the inputs: paths and truth)."""
+    from barcoder_tpu_torch.ops import count_match
     from barcoder_tpu_torch.pipeline.heuristic_count import CudaCounter, run_count
 
     out = {}
@@ -1781,6 +1786,7 @@ def phase7_counting(d: str) -> tuple[dict, dict]:
         for engine in ("vector", "device"):
             CudaCounter.dispatches, CudaCounter.match_ms = 0, 0.0
             CudaCounter.device_ms = 0.0
+            CudaCounter.card_rows = CudaCounter.host_rows = count_match.launches = 0
             t0 = time.perf_counter()
             doc, undoc, total, info = run_count(paths["lib"], *files, engine=engine)
             torch.cuda.synchronize()
@@ -1799,23 +1805,33 @@ def phase7_counting(d: str) -> tuple[dict, dict]:
                                documented=sum(doc.values()),
                                undocumented=sum(undoc.values()),
                                dispatches=CudaCounter.dispatches,
+                               launches=count_match.launches,
+                               card_rows=CudaCounter.card_rows,
+                               host_rows=CudaCounter.host_rows,
                                match_ms=CudaCounter.match_ms,
                                device_ms=CudaCounter.device_ms)
             if engine == "device":
-                if CudaCounter.dispatches < 1:
-                    raise AssertionError(f"{layout}: the device engine dispatched nothing")
+                # every batch's every read tested by one count_match launch;
+                # no screen read's window is truncated, so none left the card
+                if (CudaCounter.dispatches < 1 or count_match.launches != CudaCounter.dispatches
+                        or CudaCounter.card_rows != total or CudaCounter.host_rows):
+                    raise AssertionError(
+                        f"{layout}: {CudaCounter.dispatches} dispatches, "
+                        f"{count_match.launches} count_match launches, card_rows "
+                        f"{CudaCounter.card_rows}, host_rows {CudaCounter.host_rows} of {total}")
                 if layout == "single_end":
                     device_doc, cfg = doc, info["config"]
-            elif CudaCounter.dispatches:
+            elif CudaCounter.dispatches or count_match.launches:
                 raise AssertionError(f"{layout}: the vector engine dispatched to the card")
             r = got[engine]
             log(f"phase 7 {layout} {engine}: {total} reads in {wall:.4f} s, "
                 f"{r['reads_per_s']:.4e} reads/s, {r['documented']} documented, "
                 f"{r['undocumented']} undocumented == truth; {r['dispatches']} dispatches, "
-                f"matching {r['match_ms']:.4f} ms on the card, with copies "
+                f"{r['launches']} count_match launches, card_rows {r['card_rows']}, host_rows "
+                f"{r['host_rows']}; the kernel {r['match_ms']:.4f} ms on the card, with copies "
                 f"{r['device_ms']:.4f} ms")
         out[layout] = got
-    out["match_replay"] = match_replay(cfg)
+    out["count_match"] = count_match_replay(cfg, paths["r1"])
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "barcoder_tpu_torch", "count", paths["lib"], paths["r1"],
@@ -1836,42 +1852,72 @@ def phase7_counting(d: str) -> tuple[dict, dict]:
     return out, data
 
 
-def match_replay(cfg, reps: int = 10) -> dict:
-    """The card time of CudaCounter's matching alone (CUDA events, mean of
-    ``reps`` after a warm-up) on one full batch already on the card: keys
-    of the library's barcodes drawn at random, UNDOC_SHARE of them random
-    keys that miss. Bound: the bytes it must move (the batch's keys and
-    eligibility read, its mask written, the table and the accumulator read
-    and written once) over the memory rate; the binary search's compares
-    are far below the card's operation rate."""
-    from barcoder_tpu_torch.pipeline.heuristic_count import CudaCounter, match_keys
+def count_match_replay(cfg, r1: str, reps: int = 10) -> dict:
+    """``count_match`` alone at the cell's batch shape: the first
+    ``CudaCounter._DISPATCH_ROWS`` single-end reads of ``r1`` already on the
+    card, the library's match table; the kernel's device time (profiler),
+    its route's and its plain twin's on the same device tensors (CUDA
+    events, mean of ``reps`` after a warm-up: the call with its output
+    allocations and the counts' memset), the twin's accumulator and row
+    lists equal to the kernel's. Bound:
+    bytes, the batch's matrix and the table read once and the accumulator,
+    the row lists and their counts written once, over the memory rate; the
+    binary search's compares are far below the card's operation rate. No
+    single PyTorch call computes this function, so there is no library
+    yardstick."""
+    from barcoder_tpu_torch.ops import count_match
+    from barcoder_tpu_torch.pipeline.heuristic_count import CudaCounter
+    from barcoder_tpu_torch.seqio.fast_reader import iter_matrix_chunks
 
     cc = CudaCounter(cfg)
-    acc = torch.zeros(cc.B, dtype=torch.int64, device="cuda")
     n = CudaCounter._DISPATCH_ROWS
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    k = cc._keys_dev[torch.randint(0, cc.B, (n,), device="cuda", generator=g)]
-    miss = torch.rand(n, device="cuda", generator=g) < UNDOC_SHARE
-    k = torch.where(miss, torch.randint(-(2**62), 2**62, (n,), device="cuda", generator=g), k)
-    e = torch.ones(n, dtype=torch.bool, device="cuda")
-    match_keys(cc._keys_dev, cc._rows_dev, acc, k, e)
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        hit = match_keys(cc._keys_dev, cc._rows_dev, acc, k, e)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / reps
-    found = int(hit.sum())
-    if found < int((~miss).sum()) or int(acc.sum()) != found * (reps + 1):
-        raise AssertionError("the replayed matching lost hits")
-    n_bytes = n * (8 + 1 + 1) + cc.B * 8 * 4
+    parts, rows = [], 0
+    for (m, _), _ in iter_matrix_chunks(r1, None, n):
+        parts.append(m)
+        rows += len(m)
+        if rows >= n:
+            break
+    m1 = torch.from_numpy(np.concatenate(parts)[:n]).cuda()
+    table = cc._tables[0]
+
+    def run(fn):
+        acc = torch.zeros(cc.B, dtype=torch.int64, device="cuda")
+        idx, counts = fn(table, m1, None, acc)
+        return acc, idx, counts
+
+    def timed(fn) -> float:
+        run(fn)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            run(fn)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    acc_k, idx_k, cnt_k = run(count_match.count_match)
+    acc_t, idx_t, cnt_t = run(count_match.count_match_reference)
+    got = count_match.split_rows(idx_k.cpu().numpy(), cnt_k.cpu().numpy())
+    want = count_match.split_rows(idx_t.cpu().numpy(), cnt_t.cpu().numpy())
+    if (not torch.equal(acc_k, acc_t) or not torch.equal(cnt_k, cnt_t)
+            or not all(np.array_equal(a, b) for a, b in zip(got, want))):
+        raise AssertionError("phase 7: count_match differs from its plain twin")
+    ms = kernel_device_ms(lambda: run(count_match.count_match), "count_match_kernel", reps)
+    route_ms = timed(count_match.count_match)
+    plain_ms = timed(count_match.count_match_reference)
+    listed = int(cnt_k.sum())
+    n_bytes = m1.numel() + cc.B * (8 + 8 + 8) + 4 * listed + 8
     b = bound(0, "int8", n_bytes)
-    log(f"phase 7: the matching alone on the card, {n} keys against {cc.B}: {ms:.4f} ms a "
-        f"batch (bound {b['bound_ms']:.4f} ms by bytes, share {b['bound_ms'] / ms:.3f}); "
+    log(f"phase 7: count_match alone on the card, {n} reads of {m1.shape[1]} bytes against "
+        f"{cc.B} keys ({int(acc_k.sum())} hits, {int(cnt_k[0])} unmatched, {int(cnt_k[1])} "
+        f"truncated): {ms:.4f} ms a batch (bound {b['bound_ms']:.4f} ms by bytes, share "
+        f"{b['bound_ms'] / ms:.3f}); the call {route_ms:.4f} ms; the plain twin "
+        f"{plain_ms:.4f} ms on the same tensors; "
         f"{ms * N_SINGLE / n:.4f} ms for the {N_SINGLE} single-end reads")
-    return dict(rows=n, barcodes=cc.B, ms=ms, bound_ms=b["bound_ms"],
-                ms_single_end=ms * N_SINGLE / n)
+    return dict(rows=n, width=int(m1.shape[1]), barcodes=cc.B, ms=ms, route_ms=route_ms,
+                plain_ms=plain_ms,
+                bound_ms=b["bound_ms"], bound_by=b["bound_by"], library_ms=None,
+                ms_single_end=ms * N_SINGLE / n, max_abs_err=0.0)
 
 
 # --- phase 8 -----------------------------------------------------------------
@@ -1902,7 +1948,7 @@ def phase8_worker(pid: int, port: int, spec_path: str, out_path: str) -> int:
     report: walls, counts, owned reads, kernel launches."""
     import pickle
 
-    from barcoder_tpu_torch.ops import scan_hits
+    from barcoder_tpu_torch.ops import count_match, scan_hits
     from barcoder_tpu_torch.parallel import multihost
     from barcoder_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
     from barcoder_tpu_torch.parallel.sharded_scan import sharded_scan, sharded_scan_many
@@ -1955,6 +2001,7 @@ def phase8_worker(pid: int, port: int, spec_path: str, out_path: str) -> int:
             merge()
         merge_ms[name] = (time.perf_counter() - t0) * 1e3 / 5
     counts = {}
+    count_match.launches = 0
     for layout, files in (("single_end", (spec["r1"],)), ("paired", (spec["p1"], spec["p2"]))):
         t0 = time.perf_counter()
         doc, undoc, total, info = run_count(spec["lib"], *files)
@@ -1963,6 +2010,7 @@ def phase8_worker(pid: int, port: int, spec_path: str, out_path: str) -> int:
         counts[layout] = dict(engine=info["engine"], total=total, owned=info["owned_reads"],
                               wall_s=wall, reads_per_s=total / wall, doc=dict(doc),
                               undoc=dict(undoc))
+    launches["count_match"] = count_match.launches
     with open(out_path, "w") as fh:
         json.dump({"process": multihost.process_index(), "processes": multihost.process_count(),
                    "device": str(dev), "mesh_processes": mesh.processes.tolist(),
@@ -2000,7 +2048,7 @@ def phase8_multihost(rec, genome, libs, plants, cuda_hits, count: dict,
     import re
 
     from barcoder_tpu_torch import graft_entry
-    from barcoder_tpu_torch.ops import scan_hits
+    from barcoder_tpu_torch.ops import count_match, scan_hits
     from barcoder_tpu_torch.ops.cuda_scan import cuda_scan_contigs
     from barcoder_tpu_torch.parallel.multihost import free_port, spawn_joined
     from barcoder_tpu_torch.parallel.sharded_count import make_read_mesh
@@ -2015,7 +2063,7 @@ def phase8_multihost(rec, genome, libs, plants, cuda_hits, count: dict,
     many_libs = [seqs[k::8] for k in range(8)]
 
     # ShardedCounter in this process, on a read mesh of two shards of the card
-    CudaCounter.dispatches = 0
+    CudaCounter.dispatches = count_match.launches = 0
     t0 = time.perf_counter()
     doc, undoc, total, info = run_count(paths["lib"], paths["r1"], engine="sharded",
                                         mesh=make_read_mesh(devices=[dev] * 2))
@@ -2023,10 +2071,12 @@ def phase8_multihost(rec, genome, libs, plants, cuda_hits, count: dict,
     wall = time.perf_counter() - t0
     if (doc, undoc) != truth["single_end"] or total != N_SINGLE or info["owned_reads"] != total:
         raise AssertionError("phase 8: ShardedCounter on two shards of the card miscounted")
-    if CudaCounter.dispatches < 2:
-        raise AssertionError("phase 8: ShardedCounter matched on fewer than two shards")
+    if CudaCounter.dispatches < 2 or count_match.launches != CudaCounter.dispatches:
+        raise AssertionError(f"phase 8: ShardedCounter made {CudaCounter.dispatches} shard "
+                             f"dispatches and {count_match.launches} count_match launches")
     out["sharded_counter_2_shards"] = dict(wall_s=wall, reads_per_s=total / wall,
-                                           dispatches=CudaCounter.dispatches)
+                                           dispatches=CudaCounter.dispatches,
+                                           launches=count_match.launches)
     log(f"phase 8: ShardedCounter on [cuda:0] x 2, {total} single-end reads in {wall:.4f} s "
         f"({total / wall:.4e} reads/s), {CudaCounter.dispatches} shard dispatches, == truth")
 
@@ -2068,7 +2118,7 @@ def phase8_multihost(rec, genome, libs, plants, cuda_hits, count: dict,
             with open(path) as fh:
                 r = json.load(fh)
             reports.append(r)
-            for kernel in ("scan_hits", "phase2_hits"):
+            for kernel in ("scan_hits", "phase2_hits", "count_match"):
                 if r["launches"][kernel] == 0:
                     raise AssertionError(f"phase 8 worker {pid} never launched the {kernel} "
                                          "kernel")
@@ -2101,10 +2151,11 @@ def phase8_multihost(rec, genome, libs, plants, cuda_hits, count: dict,
                                       for k, c in r["counts"].items()}} for r in reports]
         out["launches"] = sum(r["launches"]["scan_hits"] for r in reports)
         out["phase2_launches"] = sum(r["launches"]["phase2_hits"] for r in reports)
+        out["count_match_launches"] = sum(r["launches"]["count_match"] for r in reports)
         for r in out["workers"]:
             log(f"phase 8 worker on {r['device']}: site, dense, 2-D and many == phase 3 / solo, "
                 f"planted found; walls (first, steady) {r['walls_s']}; host merges "
-                f"{r['merge_ms']} ms; scan_hits launches {r['launches']}; counts == truth: "
+                f"{r['merge_ms']} ms; launches {r['launches']}; counts == truth: "
                 + ", ".join(f"{k} {c['owned']} of {c['total']} owned, {c['wall_s']:.4f} s, "
                             f"{c['reads_per_s']:.4e} reads/s (phase 7 device "
                             f"{phase7[k]['device']['reads_per_s']:.4e})"
@@ -2532,6 +2583,10 @@ def main(argv=None) -> int:
                         "sharded": sharded["launches"]["phase2_hits"],
                         "harness": sharded["harness_launches"]["phase2_hits"],
                         "multihost": multihost["phase2_launches"]},
+        "count_match": {"device": sum(counting[k]["device"]["launches"]
+                                      for k in ("single_end", "paired")),
+                        "sharded": multihost["sharded_counter_2_shards"]["launches"],
+                        "multihost": multihost["count_match_launches"]},
         "colmax_mma": {"int8_bench": entry_points["int8_bench"]["colmax_mma"]},
         "phase1_ablate": {"phase1_ablate": entry_points["phase1_ablate"]["phase1_ablate"]},
         "phase1_epilogue": {"phase1_bench": entry_points["phase1_bench"]["phase1_epilogue"]},
@@ -2562,6 +2617,10 @@ def main(argv=None) -> int:
         kernel("phase2_hits", "scan_hits.cu",
                "none: pallas_scan.py's phase 2 (extract_spec, extract_full) is XLA",
                0.0, p2["resident_L20_site"], {**p2, "design_L20_site": design["phase2"]}),
+        kernel("count_match", "count_match.cu",
+               "none: the JAX DeviceCounter matched with jnp.dot outside Pallas and tested "
+               "each read in host numpy", counting["count_match"]["max_abs_err"],
+               counting["count_match"]),
         kernel("scan_max", "scan_max.cu", "barcoder_tpu/ops/pallas_scan.py:77",
                max(worst(k2b), sharded["block_max_err"],
                    sharded["harness_block_max"]["max_abs_err"]), k2b["L20_additive_SUB1"],

@@ -412,23 +412,30 @@ def test_resume_from_partial_checkpoint(tmp_path, monkeypatch, read_files, engin
     are in flight must include them (save drains first)."""
     barcodes, f1, f2 = read_files
     ckpt = str(tmp_path / "counts.ckpt.npz")
-    orig = thc.VectorCounter.process_matrices
+    # each engine's own chunk entry point: VectorCounter's, or CudaCounter's
+    # (which ShardedCounter's calls)
+    origs = {cls: cls.process_matrices for cls in (thc.VectorCounter, thc.CudaCounter)}
     calls = {"n": 0}
 
     class Boom(Exception):
         pass
 
-    def crashing(self, m1, m2):
-        calls["n"] += 1
-        if calls["n"] > 6:
-            raise Boom()
-        return orig(self, m1, m2)
+    def crashing(orig):
+        def process_matrices(self, m1, m2):
+            calls["n"] += 1
+            if calls["n"] > 6:
+                raise Boom()
+            return orig(self, m1, m2)
 
-    monkeypatch.setattr(thc.VectorCounter, "process_matrices", crashing)
+        return process_matrices
+
+    for cls, orig in origs.items():
+        monkeypatch.setattr(cls, "process_matrices", crashing(orig))
     monkeypatch.setattr(thc.CudaCounter, "_DISPATCH_ROWS", 300)
     with pytest.raises(Boom):
         _port_run(barcodes, f1, f2, engine, checkpoint_path=ckpt, checkpoint_every=2)
-    monkeypatch.setattr(thc.VectorCounter, "process_matrices", orig)
+    for cls, orig in origs.items():
+        monkeypatch.setattr(cls, "process_matrices", orig)
     assert os.path.exists(ckpt)
     got = _port_run(barcodes, f1, f2, engine, checkpoint_path=ckpt, checkpoint_every=2)
     want = jhc.run_count(set(barcodes), f1, f2, chunk_size=256)
@@ -536,13 +543,13 @@ def test_pending_queue_is_bounded(read_files):
     barcodes, f1, f2 = read_files
     _, _, _, info = thc.run_count(set(barcodes), f1, f2, chunk_size=1024, engine="vector")
     vc = thc.CudaCounter(info["config"], device="cpu")
-    vc._DISPATCH_ROWS = 64  # flush every _tally so the queue actually fills
+    vc._DISPATCH_ROWS = 64  # flush every chunk so the queue actually fills
     rng = np.random.default_rng(0)
     max_seen = 0
-    bc_len = info["config"].bc_len
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
     for _ in range(vc._MAX_PENDING * 3):
-        cores = rng.integers(65, 69, size=(64, bc_len)).astype(np.uint8)
-        vc._tally(np.zeros(64, np.uint64), cores, np.ones(64, bool))
+        m1, m2 = (acgt[rng.integers(0, 4, size=(64, 80))] for _ in range(2))
+        vc.process_matrices(m1, m2)
         max_seen = max(max_seen, len(vc._pending))
     assert max_seen <= vc._MAX_PENDING
     vc.drain()

@@ -783,7 +783,7 @@ def test_cuda_counter_spills_and_resumes(cuda, tmp_path, monkeypatch):
     assert doc == truth and n == 2500
     assert hc.CudaCounter.dispatches - before == 5  # 2,500 reads in batches of 512
     want = hc.run_count(set(barcodes), f1, f2, chunk_size=256, engine="vector")
-    orig = hc.VectorCounter.process_matrices
+    orig = hc.CudaCounter.process_matrices
     calls = {"n": 0}
 
     def crashing(self, m1, m2):
@@ -793,11 +793,11 @@ def test_cuda_counter_spills_and_resumes(cuda, tmp_path, monkeypatch):
         return orig(self, m1, m2)
 
     ckpt = str(tmp_path / "counts.ckpt.npz")
-    monkeypatch.setattr(hc.VectorCounter, "process_matrices", crashing)
+    monkeypatch.setattr(hc.CudaCounter, "process_matrices", crashing)
     with pytest.raises(KeyboardInterrupt):
         hc.run_count(set(barcodes), f1, f2, chunk_size=256, engine="device",
                      checkpoint_path=ckpt, checkpoint_every=2)
-    monkeypatch.setattr(hc.VectorCounter, "process_matrices", orig)
+    monkeypatch.setattr(hc.CudaCounter, "process_matrices", orig)
     assert os.path.exists(ckpt)
     got = hc.run_count(set(barcodes), f1, f2, chunk_size=256, engine="device",
                        checkpoint_path=ckpt, checkpoint_every=2)

@@ -442,9 +442,9 @@ def _worker(pid: int, nproc: int, port: str, spec_path: str, out_path: str) -> N
     flush_rows = []
     orig_dispatch, orig_rows = ShardedCounter._device_match_async, ShardedCounter._DISPATCH_ROWS
 
-    def recording(self, keys, eligible):
-        flush_rows.append(len(keys))
-        return orig_dispatch(self, keys, eligible)
+    def recording(self, m1, m2, *staged):
+        flush_rows.append(len(m1 if m1 is not None else m2))
+        return orig_dispatch(self, m1, m2, *staged)
 
     ShardedCounter._device_match_async, ShardedCounter._DISPATCH_ROWS = recording, 512
     try:
